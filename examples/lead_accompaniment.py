@@ -8,7 +8,7 @@ import os
 # runnable from a plain checkout (no pip install needed)
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from pyfasst_tpu.models.lead import SeparateLeadStereoTF
+from pyfasst_jax.models.lead import SeparateLeadStereoTF
 
 song, out_dir = sys.argv[1], sys.argv[2]
 sep = SeparateLeadStereoTF(song, niter=60)

@@ -10,8 +10,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-from pyfasst_tpu.models import MultiChanNMFConv
-from pyfasst_tpu.models.demix import DEMIX
+from pyfasst_jax.models import MultiChanNMFConv
+from pyfasst_jax.models.demix import DEMIX
 
 mix, out_dir = sys.argv[1], sys.argv[2]
 K = int(sys.argv[3]) if len(sys.argv) > 3 else 3

@@ -8,7 +8,7 @@ the mixing stays frozen for the first 30% of iterations while the spectra
 adapt. If every hypothesis is vetoed, a warning says the mixture likely
 does not support n_sources separable sources. Equivalent CLI:
 
-    pyfasst-tpu separate mix.wav -o out --model fullrank --spatial-init
+    pyfasst-jax separate mix.wav -o out --model fullrank --spatial-init
 
 Usage: python examples/separate_reverberant_fullrank.py mix.wav out_dir [n_sources]
 """
@@ -20,18 +20,17 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-from pyfasst_tpu.models import MultiChanNMFConv
-from pyfasst_tpu.models.spatial_init import apply_profiles, full_rank_init
-from pyfasst_tpu.audio import AudioObject
-from pyfasst_tpu.tf.stft import STFT
-from pyfasst_tpu.utils.misc import to_host_complex
+from pyfasst_jax.models import MultiChanNMFConv
+from pyfasst_jax.models.spatial_init import apply_profiles, full_rank_init
+from pyfasst_jax.audio import AudioObject
+from pyfasst_jax.tf.stft import STFT
 
 mix, out_dir = sys.argv[1], sys.argv[2]
 J = int(sys.argv[3]) if len(sys.argv) > 3 else 4
 WLEN = 1024
 
 obj = AudioObject(mix)
-X = to_host_complex(STFT(wlen=WLEN, fs=obj.samplerate)
+X = np.asarray(STFT(wlen=WLEN, fs=obj.samplerate)
                     .computeTransform(obj.data.astype(np.float32)))
 A0, tw_prof, fb_prof = full_rank_init(X, J=J)
 

@@ -14,16 +14,16 @@ import os
 # runnable from a plain checkout (no pip install needed)
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import pyfasst_tpu
-from pyfasst_tpu.audio import AudioObject
-from pyfasst_tpu.tf.erblet import ERBLetTransform
+import pyfasst_jax
+from pyfasst_jax.audio import AudioObject
+from pyfasst_jax.tf.erblet import ERBLetTransform
 
 mix, out_dir = sys.argv[1], sys.argv[2]
 scale = sys.argv[3] if len(sys.argv) > 3 else "erb"
 
 fs = AudioObject(mix).samplerate
 tft = ERBLetTransform(fs=fs, n_bands=64, scale=scale)
-model = pyfasst_tpu.MultiChanNMFInst_FASST(
+model = pyfasst_jax.MultiChanNMFInst_FASST(
     mix, nbComps=2, nbNMFComps=8, iter_num=200, transform=tft, verbose=1)
 model.estim_param_a_posteriori()
 paths = model.separate_spat_comps(out_dir)

@@ -20,7 +20,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-from pyfasst_tpu.models.streaming import separate_streaming
+from pyfasst_jax.models.streaming import separate_streaming
 
 mix_path, out_dir = sys.argv[1], sys.argv[2]
 
@@ -44,8 +44,8 @@ print("per-source output peak:",
 print("wrote", info["files"])
 
 # The pieces are public if you need a custom loop -- see
-# pyfasst_tpu.ops.online (online_init / online_block),
-# pyfasst_tpu.tf.stft.STFT.stream_blocks and .synthesis_stream:
+# pyfasst_jax.ops.online (online_init / online_block),
+# pyfasst_jax.tf.stft.STFT.stream_blocks and .synthesis_stream:
 # push analysis blocks through online_block with a carried state, then
 # Wiener-separate each block and feed StreamingSynthesis.push /
 # .flush for constant-memory synthesis (tools/validate_hw.py's

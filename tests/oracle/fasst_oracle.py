@@ -5,7 +5,7 @@ per-source loops -- no packed representations, no JAX. Intentionally the
 *dumbest correct* implementation: per-(f,n) math is written with full
 (F, N, 2, 2) complex arrays and np.linalg where convenient. Numerical knobs
 (eps, det floor, annealing schedule, update order, renormalization) mirror
-pyfasst_tpu exactly so that x64 runs agree to near machine precision.
+pyfasst_jax exactly so that x64 runs agree to near machine precision.
 """
 from __future__ import annotations
 
@@ -77,7 +77,7 @@ class OracleParams:
 
 
 def params_from_pytree(params) -> OracleParams:
-    """Convert a pyfasst_tpu FasstParams pytree to float64 oracle params."""
+    """Convert a pyfasst_jax FasstParams pytree to float64 oracle params."""
     spat = [OracleSpatial(A=np.asarray(c.A, dtype=(
         np.complex128 if np.iscomplexobj(np.asarray(c.A)) else np.float64)),
         mix_type=c.mix_type, free=c.free) for c in params.spat]
@@ -123,7 +123,7 @@ def noise_psd(it, niter, sigma0, sigma1, mode):
 
 def _cross_terms(R, params, F):
     """trR (J,F) and X (J,J,F) via Lagrange's identity over mixing columns
-    (mirrors pyfasst_tpu.ops.estep.cross_terms)."""
+    (mirrors pyfasst_jax.ops.estep.cross_terms)."""
     J = len(params.spat)
     trR = np.stack([np.einsum("fii->f", R[j]).real for j in range(J)])
 
@@ -204,7 +204,7 @@ def estep(X, params: OracleParams, sigma, noise_inject=False):
             trCR = trCR + sigma[:, None] * np.sum(np.abs(zvecs[j]) ** 2,
                                                   axis=(2, 3))
         # Sherman-Morrison subtract-free posterior terms (mirrors
-        # pyfasst_tpu.ops.estep: S_j assembled as the sum over k != j).
+        # pyfasst_jax.ops.estep: S_j assembled as the sum over k != j).
         if J == 1:
             Sj = sigma[:, None, None, None] * eye * np.ones((F, N, 1, 1))
         else:
@@ -261,7 +261,7 @@ def estep(X, params: OracleParams, sigma, noise_inject=False):
 
 
 def estep_general(X, params: OracleParams, sigma, noise_inject=False):
-    """General-I E-step (mirrors pyfasst_tpu.ops.engine_general).
+    """General-I E-step (mirrors pyfasst_jax.ops.engine_general).
 
     X: complex (F, N, I) for any channel count I. Float64 with PD Sigma_x,
     so plain np.linalg inverses stand in for the engine's unrolled Cholesky

@@ -1,7 +1,7 @@
 """AudioObject WAV round-trip tests."""
 import numpy as np
 
-from pyfasst_tpu.audio import AudioObject, wavread, wavwrite
+from pyfasst_jax.audio import AudioObject, wavread, wavwrite
 
 
 def test_wav_roundtrip_pcm16(tmp_path, rng):

@@ -6,7 +6,7 @@ on hardware); these tests cover the module mechanics at tiny shapes.
 import numpy as np
 import pytest
 
-from pyfasst_tpu.models import binfeat
+from pyfasst_jax.models import binfeat
 
 
 def _tiny_params():

@@ -1,12 +1,12 @@
-"""CLI (`python -m pyfasst_tpu`) end-to-end on tiny clips."""
+"""CLI (`python -m pyfasst_jax`) end-to-end on tiny clips."""
 import json
 import os
 
 import numpy as np
 import pytest
 
-from pyfasst_tpu.__main__ import main
-from pyfasst_tpu.audio import wavwrite
+from pyfasst_jax.__main__ import main
+from pyfasst_jax.audio import wavwrite
 
 
 @pytest.fixture
@@ -93,7 +93,7 @@ def test_separate_checkpoint(mix_wav, tmp_path, capsys):
     assert main(["separate", mix_wav, "-o", str(tmp_path / "s"),
                  "--iters", "4", "--wlen", "256", "-q",
                  "--checkpoint", ck]) == 0
-    from pyfasst_tpu.utils.checkpoint import load_params
+    from pyfasst_jax.utils.checkpoint import load_params
     _, it, _ = load_params(ck)
     assert it == 4
 
@@ -136,7 +136,7 @@ def test_separate_batch_directory(tmp_path, rng, capsys):
             assert os.path.exists(f)
         assert np.isfinite(rep["results"][stem]["final_loglik"])
     # cropped back to true lengths: stems must match their mixture length
-    from pyfasst_tpu.audio import wavread
+    from pyfasst_jax.audio import wavread
     for stem, dur in (("a", 0.6), ("b", 1.0), ("c", 1.4)):
         est, _ = wavread(rep["results"][stem]["files"][0])
         assert est.shape[0] == int(fs * dur)
@@ -223,7 +223,7 @@ def test_preset_applies_operating_point():
     data-driven and live in _PRESETS)."""
     import argparse
 
-    from pyfasst_tpu.__main__ import _PRESETS, _apply_preset
+    from pyfasst_jax.__main__ import _PRESETS, _apply_preset
 
     ns = argparse.Namespace(preset="speech", model="inst", wlen=1024,
                             iters=200, multiscale_wlen=None,
@@ -261,7 +261,7 @@ def test_reseed_pipeline_over_warped_transform(mix_wav, tmp_path, capsys):
 def test_eval_command(mix_wav, tmp_path, capsys):
     """Scoring estimated stems vs references through the CLI."""
     # trivial case: estimates == references -> near-perfect SDR
-    from pyfasst_tpu.audio import wavread, wavwrite
+    from pyfasst_jax.audio import wavread, wavwrite
     data, sr = wavread(mix_wav)
     a = str(tmp_path / "a.wav")
     b = str(tmp_path / "b.wav")

@@ -9,13 +9,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pyfasst_tpu.models.components import (
+from pyfasst_jax.models.components import (
     CONV, FasstParams, SpatialComp, SpectralComp,
 )
-from pyfasst_tpu.ops.gem import annealing_endpoints, run_gem
-from pyfasst_tpu.ops.wiener import separate_sources
-from pyfasst_tpu.tf.filterbank import spectral_basis
-from pyfasst_tpu.utils.config import GEMConfig
+from pyfasst_jax.ops.gem import annealing_endpoints, run_gem
+from pyfasst_jax.ops.wiener import separate_sources
+from pyfasst_jax.tf.filterbank import spectral_basis
+from pyfasst_jax.utils.config import GEMConfig
 
 
 def _sdr(est, ref):
@@ -59,7 +59,7 @@ def test_conv_anechoic_three_sources(rng):
     # ERB fixed frequency basis (BASELINE configs[1] front-end)
     FB_erb = spectral_basis("erb", 24, F, 16000, (F - 1) * 2)
     # DEMIX initialization (the reference's intended flow for conv models)
-    from pyfasst_tpu.models.demix import DEMIX
+    from pyfasst_jax.models.demix import DEMIX
     dm = DEMIX(X=X)
     dm.comp_parameters(J)
     A0 = dm.mixing(F)

@@ -1,7 +1,7 @@
 """DEMIX blind mixing-estimation tests (reference parity: pyfasst/demixTF.py)."""
 import numpy as np
 
-from pyfasst_tpu.models.demix import DEMIX, local_directions
+from pyfasst_jax.models.demix import DEMIX, local_directions
 
 
 def _anechoic(F, g, d):

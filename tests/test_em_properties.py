@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 from jax import enable_x64
 
-from pyfasst_tpu.models.components import FasstParams, SpatialComp, SpectralComp
-from pyfasst_tpu.ops.gem import annealing_endpoints, run_gem
-from pyfasst_tpu.ops.wiener import separate_sources
-from pyfasst_tpu.utils.config import GEMConfig
+from pyfasst_jax.models.components import FasstParams, SpatialComp, SpectralComp
+from pyfasst_jax.ops.gem import annealing_endpoints, run_gem
+from pyfasst_jax.ops.wiener import separate_sources
+from pyfasst_jax.utils.config import GEMConfig
 
 
 def _problem(rng, F=33, N=48, J=2, K=3):
@@ -89,9 +89,9 @@ def test_nmf_updates_nonincrease_is_divergence(rng):
     """SURVEY.md §4 unit row: the multiplicative IS-NMF factor updates must
     not increase IS(P, V) on random data -- including the 4-factor
     FB.FW.TW.TB chain."""
-    from pyfasst_tpu.models.components import SpectralComp
-    from pyfasst_tpu.ops.mstep import _nmf_factor_updates
-    from pyfasst_tpu.utils.signal import is_distortion
+    from pyfasst_jax.models.components import SpectralComp
+    from pyfasst_jax.ops.mstep import _nmf_factor_updates
+    from pyfasst_jax.utils.signal import is_distortion
 
     F, N, L, K, M = 21, 34, 6, 4, 12
     P = jnp.asarray(0.1 + rng.random((F, N)), jnp.float32)

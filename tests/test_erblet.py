@@ -7,7 +7,7 @@ projection.
 import numpy as np
 import pytest
 
-from pyfasst_tpu.tf.erblet import ERBLetTransform
+from pyfasst_jax.tf.erblet import ERBLetTransform
 
 
 @pytest.mark.parametrize("fs,n_bands,T", [
@@ -88,7 +88,7 @@ def test_bad_scale_rejected():
 def test_fasst_over_erblet_front_end(rng):
     """The GEM engine runs directly in the warped subband domain (the
     reference runs FASST over its NSGT coefficients -- SURVEY.md §3.1)."""
-    from pyfasst_tpu.models.variants import MultiChanNMFInst_FASST
+    from pyfasst_jax.models.variants import MultiChanNMFInst_FASST
 
     fs, T = 8000, 8000
     time = np.arange(T) / fs
@@ -119,7 +119,7 @@ def test_fasst_over_erblet_front_end(rng):
 
 
 def test_freq_basis_guard_on_warped_front_end():
-    from pyfasst_tpu.models.variants import MultiChanNMFInst_FASST
+    from pyfasst_jax.models.variants import MultiChanNMFInst_FASST
 
     tft = ERBLetTransform(fs=8000, n_bands=32)
     with pytest.raises(ValueError, match="STFT front-end"):
@@ -141,7 +141,7 @@ def test_frame_bounds_and_hop_guard():
 def test_multirate_perfect_reconstruction(rng):
     """MultiRateERBLet: exact PR from the rate-group list (mono + stereo),
     at a fraction of the uniform-hop coefficient count."""
-    from pyfasst_tpu.tf.erblet import MultiRateERBLet
+    from pyfasst_jax.tf.erblet import MultiRateERBLet
 
     t = MultiRateERBLet(fs=16000, n_bands=64)
     x = rng.standard_normal(16000).astype(np.float32)
@@ -163,7 +163,7 @@ def test_multirate_redundancy_saving():
     coefficient count by >= 3x at auditory band counts (measured overhead
     of the uniform hop is 8-12x vs per-band minimal rates -- tf/erblet.py
     docstring), and the group partition covers every band exactly once."""
-    from pyfasst_tpu.tf.erblet import MultiRateERBLet
+    from pyfasst_jax.tf.erblet import MultiRateERBLet
 
     for fs, n_bands in ((16000, 64), (44100, 80)):
         t = MultiRateERBLet(fs=fs, n_bands=n_bands)
@@ -175,7 +175,7 @@ def test_multirate_redundancy_saving():
 
 
 def test_multirate_log_scale_and_bad_decimation(rng):
-    from pyfasst_tpu.tf.erblet import MultiRateERBLet
+    from pyfasst_jax.tf.erblet import MultiRateERBLet
 
     t = MultiRateERBLet(fs=16000, n_bands=48, scale="log")
     x = rng.standard_normal(8000).astype(np.float32)
@@ -189,7 +189,7 @@ def test_multirate_band_energy_matches_uniform(rng):
     """Coefficient amplitudes are rate-normalized: a band's total energy
     (sum |c|^2 * d, i.e. per-signal-sample) matches the uniform-hop
     transform's for the same band."""
-    from pyfasst_tpu.tf.erblet import ERBLetTransform, MultiRateERBLet
+    from pyfasst_jax.tf.erblet import ERBLetTransform, MultiRateERBLet
 
     fs, n_bands, T = 16000, 48, 16000
     x = rng.standard_normal(T).astype(np.float32)

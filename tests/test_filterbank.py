@@ -1,7 +1,7 @@
 """ERB/Mel filterbank tests (SURVEY.md §4: filterbank frame bounds)."""
 import numpy as np
 
-from pyfasst_tpu.tf.filterbank import (
+from pyfasst_jax.tf.filterbank import (
     ERBTransform, erb_filterbank, mel_filterbank, spectral_basis,
     hz_to_erb, erb_to_hz,
 )
@@ -50,7 +50,7 @@ def test_full_coverage_every_bin():
     everywhere (shelf edges). A coverage hole makes those bins
     unrepresentable and collapses the annealed likelihood on broadband
     audio (observed before the fix)."""
-    from pyfasst_tpu.tf.filterbank import erb_filterbank, mel_filterbank
+    from pyfasst_jax.tf.filterbank import erb_filterbank, mel_filterbank
     for fb in (erb_filterbank(32, 513, 16000, 1024),
                mel_filterbank(12, 129, 8000, 256)):
         cov = fb.sum(0)

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from pyfasst_tpu.ops import herm
+from pyfasst_jax.ops import herm
 
 
 def _random_herm_pd(rng, n):

@@ -3,13 +3,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pyfasst_tpu.models.components import (
+from pyfasst_jax.models.components import (
     GMM, HMM, FasstParams, SpatialComp, SpectralComp,
 )
-from pyfasst_tpu.ops import hmm as hmm_ops
-from pyfasst_tpu.ops.gem import annealing_endpoints, run_gem
-from pyfasst_tpu.ops.wiener import separate_sources
-from pyfasst_tpu.utils.config import GEMConfig
+from pyfasst_jax.ops import hmm as hmm_ops
+from pyfasst_jax.ops.gem import annealing_endpoints, run_gem
+from pyfasst_jax.ops.wiener import separate_sources
+from pyfasst_jax.utils.config import GEMConfig
 
 
 def test_hmm_posteriors_match_bruteforce(rng):
@@ -212,8 +212,8 @@ def _state_switching_mixture():
 def test_hmm_beats_nmf_on_state_structured_material():
     """MultiChanHMM (Viterbi decode) must beat an equal-K NMF model by
     >= 2 dB min-SDR on genuinely state-switching material."""
-    from pyfasst_tpu.models import MultiChanHMM, MultiChanNMFInst_FASST
-    from pyfasst_tpu.utils.metrics import bss_eval_sources
+    from pyfasst_jax.models import MultiChanHMM, MultiChanNMFInst_FASST
+    from pyfasst_jax.utils.metrics import bss_eval_sources
 
     mix, refs, fs = _state_switching_mixture()
 

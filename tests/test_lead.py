@@ -2,7 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pyfasst_tpu.models.lead import (
+from pyfasst_jax.models.lead import (
     SeparateLeadStereoTF, simm_updates, viterbi_melody,
 )
 

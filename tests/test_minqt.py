@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from pyfasst_tpu.tf.minqt import MinQTransfo, minqt_kernel
+from pyfasst_jax.tf.minqt import MinQTransfo, minqt_kernel
 
 
 def test_kernel_shapes_and_peak_response():
@@ -50,7 +50,7 @@ def test_fasst_over_minqt_front_end(rng):
     """MinQT plugs in as the model front-end (reference runs FASST over
     MinQT coefficients -- SURVEY.md §3.1); its inverse is a band-limited
     projection, so the bar is a finite, improving run, not exact PR."""
-    from pyfasst_tpu.models.variants import MultiChanNMFInst_FASST
+    from pyfasst_jax.models.variants import MultiChanNMFInst_FASST
 
     fs, T = 8000, 6000
     t = np.arange(T) / fs
@@ -73,7 +73,7 @@ def test_freq_basis_rejected_over_minqt():
     freq_basis guard must still reject it (keys on name, not wlen)."""
     import pytest as _pytest
 
-    from pyfasst_tpu.models.variants import MultiChanNMFInst_FASST
+    from pyfasst_jax.models.variants import MultiChanNMFInst_FASST
 
     tr = MinQTransfo(fs=8000, wlen=1024, n_bins=24, fmin=60, fmax=3500)
     with _pytest.raises(ValueError, match="STFT front-end"):

@@ -3,8 +3,8 @@ a short GEM, and separates, straight from audio (the user surface)."""
 import numpy as np
 import pytest
 
-import pyfasst_tpu
-from pyfasst_tpu.models import (
+import pyfasst_jax
+from pyfasst_jax.models import (
     MultiChanHMM, MultiChanNMFConv, MultiChanNMFInst_FASST,
     multiChanSourceF0Filter,
 )

@@ -9,7 +9,7 @@ random init on a small separable fixture.
 import numpy as np
 import pytest
 
-from pyfasst_tpu.models.mono import is_nmf, nmf_cluster_init
+from pyfasst_jax.models.mono import is_nmf, nmf_cluster_init
 
 
 def _mono_fixture(fs=8000, dur=3.0, seed=0):
@@ -44,12 +44,11 @@ def test_is_nmf_reduces_divergence():
 
 
 def test_nmf_cluster_init_shapes_and_grouping():
-    from pyfasst_tpu.tf.stft import STFT
-    from pyfasst_tpu.utils.misc import to_host_complex
+    from pyfasst_jax.tf.stft import STFT
 
     mix, ys = _mono_fixture()
     tft = STFT(wlen=512, fs=8000)
-    X = to_host_complex(tft.computeTransform(mix))
+    X = np.asarray(tft.computeTransform(mix))
     K = 4
     init = nmf_cluster_init(X, J=2, nmf_comps=K)
     assert len(init) == 2
@@ -67,7 +66,7 @@ def test_nmf_cluster_init_shapes_and_grouping():
 def test_blind_mono_beats_random_init():
     from itertools import permutations
 
-    from pyfasst_tpu.models.variants import MultiChanNMFInst_FASST
+    from pyfasst_jax.models.variants import MultiChanNMFInst_FASST
 
     mix, ys_true = _mono_fixture()
 
@@ -94,7 +93,7 @@ def test_blind_mono_beats_random_init():
 
 
 def test_blind_mono_rejects_multichannel():
-    from pyfasst_tpu.models.variants import MultiChanNMFInst_FASST
+    from pyfasst_jax.models.variants import MultiChanNMFInst_FASST
 
     rng = np.random.default_rng(0)
     stereo = rng.standard_normal((4000, 2)).astype(np.float32)
@@ -109,7 +108,7 @@ def test_nmf_cluster_init_degenerate_fallback():
     every k-means restart collapse to < J clusters; the init must fall
     back to round-robin labels (mono.py fallback path) and still return
     J well-formed (FB, TW) pairs."""
-    from pyfasst_tpu.models.mono import nmf_cluster_init
+    from pyfasst_jax.models.mono import nmf_cluster_init
 
     rng = np.random.default_rng(3)
     w = rng.random(65) + 0.1

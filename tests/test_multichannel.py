@@ -9,8 +9,8 @@ MultiChanNMFInst_FASST / MultiChanNMFConv, GEM, Wiener separation, BSS-Eval.
 import numpy as np
 import pytest
 
-from pyfasst_tpu.models import MultiChanNMFConv, MultiChanNMFInst_FASST
-from pyfasst_tpu.utils.metrics import bss_eval_sources
+from pyfasst_jax.models import MultiChanNMFConv, MultiChanNMFInst_FASST
+from pyfasst_jax.utils.metrics import bss_eval_sources
 
 
 def _three_channel_mixture(seed=0, fs=16000, dur=3.0):

@@ -1,4 +1,4 @@
-"""Native WAV codec (pyfasst_tpu/native/wavio.cpp) vs the scipy fallback.
+"""Native WAV codec (pyfasst_jax/native/wavio.cpp) vs the scipy fallback.
 
 SURVEY.md §5 data-loader row: the native codec must be a drop-in for the
 pure-Python path — identical normalized output on shared formats — plus the
@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 from scipy.io import wavfile
 
-from pyfasst_tpu.audio import AudioObject, wavread, wavread_block, wavwrite
-from pyfasst_tpu.native import wavio
+from pyfasst_jax.audio import AudioObject, wavread, wavread_block, wavwrite
+from pyfasst_jax.native import wavio
 
 native = wavio()
 needs_native = pytest.mark.skipif(native is None,

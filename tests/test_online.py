@@ -4,7 +4,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pyfasst_tpu.ops.online import run_gem_online
+from pyfasst_jax.ops.online import run_gem_online
 
 
 def _panned_problem(rng, F=49, N=160, J=2):
@@ -69,7 +69,7 @@ def test_online_gated_narrowband_stays_finite(rng):
     mix = np.outer(s1, [0.95, 0.31]) + np.outer(s2, [0.31, 0.95])
     mix = (mix / (np.max(np.abs(mix)) * 1.05)).astype(np.float32)
 
-    from pyfasst_tpu.tf.stft import _stft_core, sine_window
+    from pyfasst_jax.tf.stft import _stft_core, sine_window
     wlen, hop = 512, 256
     window = jnp.asarray(sine_window(wlen), jnp.float32)
     X = _stft_core(jnp.asarray(mix), window, wlen, hop, "fft")
@@ -124,8 +124,8 @@ def test_online_spectral_patterns_localize(rng):
 def test_stream_blocks_bit_identical_to_full_stft(rng, tmp_path):
     """STFT.stream_blocks must reproduce the whole-file transform exactly
     (same framing/window/DFT code path, block-paged reads)."""
-    from pyfasst_tpu.audio import wavwrite
-    from pyfasst_tpu.tf.stft import STFT
+    from pyfasst_jax.audio import wavwrite
+    from pyfasst_jax.tf.stft import STFT
 
     fs, n = 8000, 8000 + 123          # deliberately not frame-aligned
     mix = np.clip(0.4 * rng.standard_normal((n, 2)), -1, 1)
@@ -133,7 +133,7 @@ def test_stream_blocks_bit_identical_to_full_stft(rng, tmp_path):
     wavwrite(mix, fs, p)
 
     st = STFT(wlen=256, fs=fs)
-    from pyfasst_tpu.audio import wavread
+    from pyfasst_jax.audio import wavread
     full = st.computeTransform(wavread(p)[0].astype(np.float32))
     blocks = list(st.stream_blocks(p, frames_per_block=7))
     streamed = jnp.concatenate(blocks, axis=1)
@@ -148,7 +148,7 @@ def test_streaming_synthesis_matches_istft(rng):
     """StreamingSynthesis (block-wise WOLA with overlap carries) must
     reproduce the whole-plane inverse to float rounding, for mono and
     stereo, including a ragged final block."""
-    from pyfasst_tpu.tf.stft import STFT
+    from pyfasst_jax.tf.stft import STFT
 
     # default hop (k=2 overlap), k=4 overlap, and single-frame blocks
     # (blocks shorter than the overlap depth roll through the carry)
@@ -178,8 +178,8 @@ def test_separate_streaming_end_to_end(rng, tmp_path):
     mixture-as-estimate baseline (0 dB) on a dense-band stereo mixture."""
     from scipy.signal import butter, lfilter
 
-    from pyfasst_tpu.audio import wavwrite
-    from pyfasst_tpu.models.streaming import separate_streaming
+    from pyfasst_jax.audio import wavwrite
+    from pyfasst_jax.models.streaming import separate_streaming
 
     fs, dur = 8000, 16.0
     n = int(fs * dur)
@@ -226,8 +226,8 @@ def test_separate_streaming_checkpoint_resume(rng, tmp_path):
 
     from scipy.signal import butter, lfilter
 
-    from pyfasst_tpu.audio import wavwrite
-    from pyfasst_tpu.models.streaming import separate_streaming
+    from pyfasst_jax.audio import wavwrite
+    from pyfasst_jax.models.streaming import separate_streaming
 
     fs, n = 8000, 8000 * 10
     b, a = butter(4, [0.02, 0.3], btype="band")
@@ -263,8 +263,8 @@ def test_separate_streaming_resume_config_mismatch(rng, tmp_path):
     import pytest
     from scipy.signal import butter, lfilter
 
-    from pyfasst_tpu.audio import wavwrite
-    from pyfasst_tpu.models.streaming import separate_streaming
+    from pyfasst_jax.audio import wavwrite
+    from pyfasst_jax.models.streaming import separate_streaming
 
     fs, n = 8000, 8000 * 6
     b, a = butter(4, [0.02, 0.3], btype="band")
@@ -318,8 +318,8 @@ def test_separate_streaming_three_channels(rng, tmp_path):
     (I != 2 trace-time dispatch in ops/online._block_estep)."""
     from scipy.signal import butter, lfilter
 
-    from pyfasst_tpu.audio import wavwrite
-    from pyfasst_tpu.models.streaming import separate_streaming
+    from pyfasst_jax.audio import wavwrite
+    from pyfasst_jax.models.streaming import separate_streaming
 
     fs, dur = 8000, 12.0
     n = int(fs * dur)
@@ -355,7 +355,7 @@ def test_separate_streaming_three_channels(rng, tmp_path):
 def test_online_block_matches_scanned_run(rng):
     """Host-driven online_block carries must equal run_gem_online's scan
     (shared body)."""
-    from pyfasst_tpu.ops.online import (
+    from pyfasst_jax.ops.online import (
         online_block, online_init, run_gem_online,
     )
 
@@ -390,7 +390,7 @@ def test_online_block_matches_scanned_run(rng):
 
 def test_online_block_matches_scanned_run_three_channels(rng):
     """Same equality through the general-engine dispatch (I != 2)."""
-    from pyfasst_tpu.ops.online import (
+    from pyfasst_jax.ops.online import (
         online_block, online_init, run_gem_online,
     )
 
@@ -425,7 +425,7 @@ def test_online_fullrank_covariance_recovery(rng):
     spatial covariance is recovered (the direct covariance M-step
     converges in O(1) blocks at the noise floor, unlike the sub-source
     A-form EM whose step size vanishes with sigma)."""
-    from pyfasst_tpu.ops.online import run_gem_online
+    from pyfasst_jax.ops.online import run_gem_online
 
     F, N, I, K = 17, 256, 2, 2
     M = rng.standard_normal((I, I)) + 1j * rng.standard_normal((I, I))
@@ -461,7 +461,7 @@ def test_online_fullrank_covariance_recovery(rng):
 def test_online_fullrank_block_matches_scanned_run(rng):
     """Host-driven online_block equals run_gem_online's scan on the
     full-rank path (shared _fullrank_block_step body)."""
-    from pyfasst_tpu.ops.online import (
+    from pyfasst_jax.ops.online import (
         online_block, online_init, run_gem_online,
     )
 
@@ -494,7 +494,7 @@ def test_online_fullrank_block_matches_scanned_run(rng):
 
 
 def test_online_fullrank_rejects_nonsquare_rank(rng):
-    from pyfasst_tpu.ops.online import online_init
+    from pyfasst_jax.ops.online import online_init
 
     A0 = jnp.asarray(np.ones((2, 5, 3, 2), np.complex64))
     FB0 = jnp.asarray(np.ones((2, 5, 4), np.float32))
@@ -509,12 +509,12 @@ def test_online_fullrank_beats_rank1_on_diffuse(rng):
     streaming model -- the capability the full-rank mode exists for."""
     import itertools
 
-    from pyfasst_tpu.models.components import (
+    from pyfasst_jax.models.components import (
         CONV, FasstParams, SpatialComp, SpectralComp,
     )
-    from pyfasst_tpu.ops.online import online_block, online_init, \
+    from pyfasst_jax.ops.online import online_block, online_init, \
         run_gem_online
-    from pyfasst_tpu.ops.wiener import separate_sources
+    from pyfasst_jax.ops.wiener import separate_sources
 
     F, N, J, K, I = 33, 256, 2, 3, 2
     As = []
@@ -597,8 +597,8 @@ def test_separate_streaming_fullrank(rng, tmp_path):
 
     from scipy.signal import butter, lfilter
 
-    from pyfasst_tpu.audio import wavwrite
-    from pyfasst_tpu.models.streaming import separate_streaming
+    from pyfasst_jax.audio import wavwrite
+    from pyfasst_jax.models.streaming import separate_streaming
 
     fs, dur = 8000, 12.0
     n = int(fs * dur)
@@ -664,8 +664,8 @@ def test_separate_streaming_blind_init(rng, tmp_path):
     lose to the random init on a panned stereo mixture."""
     from scipy.signal import butter, lfilter
 
-    from pyfasst_tpu.audio import wavwrite
-    from pyfasst_tpu.models.streaming import separate_streaming
+    from pyfasst_jax.audio import wavwrite
+    from pyfasst_jax.models.streaming import separate_streaming
 
     fs, dur = 8000, 12.0
     n = int(fs * dur)
@@ -706,8 +706,8 @@ def test_separate_streaming_blind_init(rng, tmp_path):
 
 def test_separate_streaming_blind_init_mono(rng, tmp_path):
     """Mono + init='blind' routes through models/mono.nmf_cluster_init."""
-    from pyfasst_tpu.audio import wavwrite
-    from pyfasst_tpu.models.streaming import separate_streaming
+    from pyfasst_jax.audio import wavwrite
+    from pyfasst_jax.models.streaming import separate_streaming
 
     fs, dur = 8000, 10.0
     n = int(fs * dur)
@@ -729,8 +729,8 @@ def test_separate_streaming_blind_init_mono(rng, tmp_path):
 
 
 def test_separate_streaming_bad_init_raises(rng, tmp_path):
-    from pyfasst_tpu.audio import wavwrite
-    from pyfasst_tpu.models.streaming import separate_streaming
+    from pyfasst_jax.audio import wavwrite
+    from pyfasst_jax.models.streaming import separate_streaming
 
     mix = rng.standard_normal((8000, 2)).astype(np.float32) * 0.1
     p = str(tmp_path / "x.wav")

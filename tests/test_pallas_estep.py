@@ -1,13 +1,16 @@
-"""Fused Pallas E-step kernel vs the XLA path (interpret mode on CPU)."""
+"""Fused E-step kernel (Pallas through Triton) vs the XLA path: parity in
+interpret mode on the CPU, the routing rule, and one compiled check on a
+card (marker `gpu`)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
-from pyfasst_tpu.models.components import FasstParams, SpatialComp, SpectralComp
-from pyfasst_tpu.ops.estep import compute_suff_stats
-from pyfasst_tpu.ops.gem import spatial_covs
-from pyfasst_tpu.ops.mstep import _as_conv_A
-from pyfasst_tpu.ops.pallas_estep import pallas_suff_stats
+from pyfasst_jax.models.components import FasstParams, SpatialComp, SpectralComp
+from pyfasst_jax.ops.estep import compute_suff_stats
+from pyfasst_jax.ops.gem import spatial_covs
+from pyfasst_jax.ops.mstep import _as_conv_A
+from pyfasst_jax.ops.pallas_estep import pallas_suff_stats
 
 
 def _problem(rng, F=33, N=70, J=2, K=3):
@@ -66,8 +69,8 @@ def test_pallas_estep_three_sources(rng):
 
 
 def test_pallas_estep_multitile_accumulation(rng):
-    """N > the frame-tile size exercises the cross-tile accumulation of the
-    reduced statistics (revisited output blocks)."""
+    """N spanning many frame tiles exercises the cross-tile sum of the
+    per-tile partial statistics."""
     X, v, Rj, A_conv, sigma, ranks = _problem(rng, F=9, N=2500, J=2)
     want = compute_suff_stats(X, v, Rj, sigma, ranks, A_conv=A_conv)
     got = pallas_suff_stats(X, v, Rj, sigma, ranks, A_conv, interpret=True)
@@ -226,7 +229,7 @@ def test_pallas_estep_real_cov_rank2_ns_inj(rng):
     A0 = jnp.asarray(np.abs(rng.standard_normal((17, 2, 2))) + 0.3,
                      jnp.float32).astype(jnp.complex64)
     A_conv = (A0,) + A_conv[1:]
-    from pyfasst_tpu.ops import herm
+    from pyfasst_jax.ops import herm
     Rj = jnp.stack([herm.herm_from_mixing(A_conv[0]),
                     herm.herm_from_mixing(A_conv[1])])
     ranks = (2, 1)
@@ -246,3 +249,120 @@ def test_pallas_estep_real_cov_rank2_ns_inj(rng):
             np.testing.assert_allclose(np.asarray(got.Tss[j][k]),
                                        np.asarray(want.Tss[j][k]),
                                        rtol=2e-4, atol=1e-4)
+
+
+def test_pallas_estep_ragged_edges(rng):
+    """F and N that are not multiples of the (BF, BN) tile: the masked
+    loads zero the padded rows and frames, every statistic matches."""
+    from pyfasst_jax.ops.pallas_estep import BF, BN
+    F, N = 3 * BF + 1, BN + 2
+    X, v, Rj, A_conv, sigma, ranks = _rank2_problem(rng, F=F, N=N)
+    want = compute_suff_stats(X, v, Rj, sigma, ranks, A_conv=A_conv,
+                              noise_inject=True)
+    got = pallas_suff_stats(X, v, Rj, sigma, ranks, A_conv,
+                            noise_inject=True, interpret=True)
+    np.testing.assert_allclose(np.asarray(got.xi), np.asarray(want.xi),
+                               rtol=3e-4, atol=1e-5)
+    np.testing.assert_allclose(float(got.loglik), float(want.loglik),
+                               rtol=1e-4)
+    for j in range(2):
+        np.testing.assert_allclose(np.asarray(got.T4[j]),
+                                   np.asarray(want.T4[j]),
+                                   rtol=5e-4, atol=1e-4)
+        for k in range(2):
+            np.testing.assert_allclose(np.asarray(got.Tss[j][k]),
+                                       np.asarray(want.Tss[j][k]),
+                                       rtol=5e-4, atol=1e-3)
+
+
+def test_stat_layout_counts_every_column():
+    from pyfasst_jax.ops.pallas_estep import stat_layout
+    n, off = stat_layout((1, 2))
+    # ll + t4 (1 + 4) + txs (4 + 8) + tss (2 + 4 + 4 + 8) + t7 (4 + 4)
+    assert n == 1 + 5 + 12 + 18 + 8
+    assert off["ll"] == 0 and off[("t4", 1)] == 2
+    assert ("t7", 0, 0) not in off and off[("t7", 1, 0)] == n - 4
+
+
+@pytest.mark.parametrize("I, ranks, dtype, covered", [
+    (2, (1, 1), jnp.complex64, True),
+    (2, (2, 2), jnp.complex64, True),
+    (2, (1, 1, 1, 1), jnp.complex64, True),
+    (2, (1, 2), jnp.complex64, True),
+    (2, (2, 2, 2), jnp.complex64, False),      # 6 sub-sources
+    (2, (1, 1, 1, 1, 1), jnp.complex64, False),
+    (3, (1, 1), jnp.complex64, False),         # general-I engine
+    (2, (1, 3), jnp.complex64, False),
+    (2, (1, 1), jnp.complex128, False),        # float64 parity mode
+])
+def test_kernel_covers_rule(I, ranks, dtype, covered):
+    from pyfasst_jax.ops.pallas_estep import kernel_covers
+    assert kernel_covers(I, ranks, dtype) is covered
+
+
+def _lowered_text(params, X, cfg, platform):
+    from pyfasst_jax.ops.gem import run_gem
+    return run_gem.trace(params, X, cfg).lower(
+        lowering_platforms=(platform,)).as_text()
+
+
+@pytest.mark.parametrize("J, rank, use_pallas, platform, kernel", [
+    (2, 1, True, "cuda", True),
+    (2, 1, True, "cpu", False),
+    (2, 1, False, "cuda", False),
+    (3, 2, True, "cuda", False),
+])
+def test_gem_routes_estep_by_platform(rng, J, rank, use_pallas, platform,
+                                      kernel):
+    """The GEM step lowers the Triton kernel only for CUDA and only for
+    covered models with use_pallas on; everything else gets XLA's E-step."""
+    import dataclasses
+    from pyfasst_jax.utils.config import GEMConfig
+    F, N = 9, 20
+    X = jnp.asarray(rng.standard_normal((F, N, 2))
+                    + 1j * rng.standard_normal((F, N, 2)), jnp.complex64)
+    if rank == 1:
+        spat = tuple(SpatialComp(A=jnp.asarray(
+            np.abs(rng.standard_normal((2, 1))) + 0.3, jnp.float32))
+            for _ in range(J))
+    else:
+        spat = tuple(SpatialComp(A=jnp.asarray(
+            rng.standard_normal((F, 2, 2)), jnp.complex64), mix_type="conv")
+            for _ in range(J))
+    spec = tuple(SpectralComp(
+        FB=jnp.asarray(0.5 + rng.random((F, 3)), jnp.float32),
+        TW=jnp.asarray(0.5 + rng.random((3, N)), jnp.float32),
+        spat_ind=j) for j in range(J))
+    cfg = dataclasses.replace(GEMConfig(niter=2), use_pallas=use_pallas)
+    text = _lowered_text(FasstParams(spat=spat, spec=spec), X, cfg,
+                         platform)
+    assert ("triton" in text) is kernel
+
+
+def test_multi_device_mesh_turns_kernel_off():
+    from pyfasst_jax.parallel import make_mesh
+    from pyfasst_jax.parallel.sharding import mesh_config
+    from pyfasst_jax.utils.config import GEMConfig
+    cfg = GEMConfig(niter=3)
+    assert mesh_config(cfg, make_mesh(1)).use_pallas
+    assert not mesh_config(cfg, make_mesh(4)).use_pallas
+    assert mesh_config(cfg, make_mesh(4)).niter == 3
+
+
+@pytest.fixture
+def cuda_device():
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("compiled Triton kernel: needs a CUDA device")
+    return jax.devices()[0]
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_xla_at_flagship_width(cuda_device):
+    """The compiled kernel against the XLA E-step on the 513 x 863
+    flagship plane (chip_smoke's kernel phase, batch of 2)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    import chip_smoke
+    for errs in chip_smoke.phase_kernel(n_batch=2).values():
+        assert max(errs.values()) < chip_smoke.KERNEL_RTOL

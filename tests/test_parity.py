@@ -12,11 +12,11 @@ import jax
 import jax.numpy as jnp
 from jax import enable_x64
 
-from pyfasst_tpu.models.components import (
+from pyfasst_jax.models.components import (
     FasstParams, SpatialComp, SpectralComp,
 )
-from pyfasst_tpu.ops.gem import run_gem
-from pyfasst_tpu.utils.config import GEMConfig
+from pyfasst_jax.ops.gem import run_gem
+from pyfasst_jax.utils.config import GEMConfig
 from tests.oracle import oracle_gem_run, oracle_separate, params_from_pytree
 from tests.oracle.fasst_oracle import (
     annealing_endpoints as np_annealing_endpoints,
@@ -90,8 +90,8 @@ def test_separation_parity_x64(rng):
         Xj = jnp.asarray(X)
         params2, _ = run_gem(params, Xj, cfg)
 
-        from pyfasst_tpu.ops.gem import annealing_endpoints
-        from pyfasst_tpu.ops.wiener import separate_sources
+        from pyfasst_jax.ops.gem import annealing_endpoints
+        from pyfasst_jax.ops.wiener import separate_sources
         _, sigma1 = annealing_endpoints(Xj, cfg)
         got = np.asarray(separate_sources(params2, jnp.asarray(X), sigma1))
 
@@ -102,7 +102,7 @@ def test_separation_parity_x64(rng):
 
 
 def test_f32_tracks_oracle_loosely(rng):
-    """The default f32 TPU path should track the f64 oracle to ~1% loglik."""
+    """The default f32 path should track the f64 oracle to ~1% loglik."""
     X, params = _tiny_problem(rng)
     params = jax.tree.map(
         lambda a: a.astype(jnp.complex64) if jnp.iscomplexobj(a)
@@ -312,8 +312,8 @@ def test_separation_parity_i3_x64(rng):
         Xj = jnp.asarray(X)
         params2, _ = run_gem(params, Xj, cfg)
 
-        from pyfasst_tpu.ops.gem import annealing_endpoints
-        from pyfasst_tpu.ops.wiener import separate_sources
+        from pyfasst_jax.ops.gem import annealing_endpoints
+        from pyfasst_jax.ops.wiener import separate_sources
         _, sigma1 = annealing_endpoints(Xj, cfg)
         got = np.asarray(separate_sources(params2, Xj, sigma1))
 

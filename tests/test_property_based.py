@@ -8,7 +8,7 @@ import numpy as np
 import jax.numpy as jnp
 from hypothesis import given, settings, strategies as st
 
-from pyfasst_tpu.ops import herm
+from pyfasst_jax.ops import herm
 
 _settings = settings(max_examples=25, deadline=None)
 
@@ -44,7 +44,7 @@ def test_herm_inv_is_inverse_across_magnitudes(seed, logscale):
 def test_stable_mixture_det_nonnegative_and_exact(seed, logv, logsig):
     """The nonnegative-monomial determinant must stay > 0 in float32 for any
     power/noise magnitudes, and match the float64 naive det."""
-    from pyfasst_tpu.ops.estep import cross_terms, stable_mixture_det
+    from pyfasst_jax.ops.estep import cross_terms, stable_mixture_det
 
     rng = np.random.default_rng(seed)
     J, F, N = 2, 5, 7
@@ -75,7 +75,7 @@ def test_stable_mixture_det_nonnegative_and_exact(seed, logv, logsig):
        wlen_pow=st.integers(4, 9), hop_div=st.sampled_from([2, 4]))
 def test_stft_perfect_reconstruction_any_geometry(nsamples, wlen_pow,
                                                   hop_div):
-    from pyfasst_tpu.tf.stft import istft, stft
+    from pyfasst_jax.tf.stft import istft, stft
 
     wlen = 2 ** wlen_pow
     hop = wlen // hop_div
@@ -89,7 +89,7 @@ def test_stft_perfect_reconstruction_any_geometry(nsamples, wlen_pow,
 @given(seed=st.integers(0, 2 ** 31 - 1), logn=st.floats(-12, 12),
        logd=st.floats(-12, 12))
 def test_mul_upd_clamps_and_floors(seed, logn, logd):
-    from pyfasst_tpu.ops.mstep import UPD_MAX, UPD_MIN, _mul_upd
+    from pyfasst_jax.ops.mstep import UPD_MAX, UPD_MIN, _mul_upd
 
     rng = np.random.default_rng(seed)
     f = jnp.asarray(rng.random((4, 5)) + 1e-6, jnp.float32)
@@ -107,7 +107,7 @@ def test_mul_upd_clamps_and_floors(seed, logn, logd):
        bits=st.sampled_from([16, 24, 32]), sr=st.sampled_from([8000, 44100]))
 def test_wavio_roundtrip_any_shape(tmp_path_factory, frames, channels, bits,
                                    sr):
-    from pyfasst_tpu.native import wavio
+    from pyfasst_jax.native import wavio
     import pytest
     native = wavio()
     if native is None:

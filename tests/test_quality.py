@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 from scipy.signal import lfilter
 
-from pyfasst_tpu.models import MultiChanNMFInst_FASST
-from pyfasst_tpu.utils.metrics import bss_eval_sources
+from pyfasst_jax.models import MultiChanNMFInst_FASST
+from pyfasst_jax.utils.metrics import bss_eval_sources
 
 
 def _music_like_sources(rng, fs, n):

@@ -9,7 +9,7 @@ the winner's statistics, acceptance monotonicity of the rule).
 import numpy as np
 import pytest
 
-from pyfasst_tpu.models.reverb import (
+from pyfasst_jax.models.reverb import (
     _hard_votes_from_sep, blind_reverb_separate, selection_key,
 )
 
@@ -155,7 +155,7 @@ def test_band_coherence_flags_interleaving():
     (each one source, all bands co-modulating) score high."""
     import jax.numpy as jnp
 
-    from pyfasst_tpu.models.spatial_init import _min_band_coherence
+    from pyfasst_jax.models.spatial_init import _min_band_coherence
 
     rng = np.random.default_rng(1)
     F, N = 64, 200
@@ -256,14 +256,13 @@ def test_blind_reverb_mini_quality_cpu():
     for platform jitter while still failing on any real regression."""
     from itertools import permutations
 
-    from pyfasst_tpu.tf.stft import STFT
-    from pyfasst_tpu.utils.misc import to_host_complex
+    from pyfasst_jax.tf.stft import STFT
 
     fs = 8000
     mix, ys_true = _mini_configs2_fixture(102, fs=fs)
     n = mix.shape[0]
     tft = STFT(wlen=512, fs=fs)
-    X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
+    X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
     Y, info = blind_reverb_separate(X, J=3, iters=120, em_seeds=1,
                                     reseed_rounds=1, n_seeds=4, chunk=8,
                                     nmf_comps=4)
@@ -302,7 +301,7 @@ def test_blind_reverb_band_em_and_noalign_candidates():
 def test_consensus_votes_align_none():
     """align='none' returns a valid vote distribution from the raw
     warm-started labels (no spectral alignment stage)."""
-    from pyfasst_tpu.models.spatial_init import consensus_votes
+    from pyfasst_jax.models.spatial_init import consensus_votes
 
     X = _reverb_mixture(seed=5)
     v = consensus_votes(X, 2, n_seeds=3, align="none")
@@ -365,7 +364,7 @@ def _time_mixture(fs=4000, dur=1.5, seed=0):
 def test_blind_reverb_multiscale_end_to_end():
     """The multiscale ladder at tiny shapes: fine-grid pipeline, vote
     remap through time-domain images, coarse-grid EM; contract checks."""
-    from pyfasst_tpu.models.reverb import blind_reverb_separate_multiscale
+    from pyfasst_jax.models.reverb import blind_reverb_separate_multiscale
 
     mix, ys_true = _time_mixture()
     Y, info = blind_reverb_separate_multiscale(
@@ -390,7 +389,7 @@ def test_model_multiscale_entry():
     bad arguments."""
     import pytest
 
-    from pyfasst_tpu.models import MultiChanNMFConv
+    from pyfasst_jax.models import MultiChanNMFConv
 
     mix, ys_true = _time_mixture(seed=1)
     m = MultiChanNMFConv(mix, fs=4000, wlen=512, iter_num=40, nbComps=2,
@@ -418,7 +417,7 @@ def test_blind_reverb_rank_transform_and_realigned_reseeds():
     assert np.all(np.isfinite(Y.view(np.float64)))
     assert len(info["history"]) >= 1
     # the module default must be untouched by parameter threading
-    import pyfasst_tpu.models.spatial_init as si
+    import pyfasst_jax.models.spatial_init as si
     assert si._ENV_TRANSFORM == "log1p"
 
 
@@ -443,7 +442,7 @@ def test_blind_reverb_learned_candidate_and_judge():
     their converged stem-dominance planes with the learned votes.
     Mechanism test with a tiny untrained net (explicit params) -- the
     quality evidence lives in tools/train_binfeat.py + design.md §6j."""
-    from pyfasst_tpu.models.binfeat import init_params
+    from pyfasst_jax.models.binfeat import init_params
 
     tiny = init_params(seed=0, c_in=5, width=8, emb_dim=4,
                        layers=((3, 3, 1, 1), (3, 3, 2, 2)))
@@ -469,7 +468,7 @@ def test_blind_reverb_on_warped_plane():
     (uniform-hop painless NSGT, tf/erblet.py) of a panned two-source
     mixture: the contract (shapes, finiteness, recorded stats) must hold
     on the warped grid, where F is the band axis."""
-    from pyfasst_tpu.tf.erblet import ERBLetTransform
+    from pyfasst_jax.tf.erblet import ERBLetTransform
 
     rng = np.random.default_rng(3)
     fs, n = 4000, 4096

@@ -5,14 +5,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pyfasst_tpu.parallel import (
+from pyfasst_jax.parallel import (
     batch_params, batched_run_gem, make_mesh, sharded_batch_separate,
 )
-from pyfasst_tpu.ops.gem import annealing_endpoints, run_gem
-from pyfasst_tpu.models.components import (
+from pyfasst_jax.ops.gem import annealing_endpoints, run_gem
+from pyfasst_jax.models.components import (
     FasstParams, SpatialComp, SpectralComp, init_inst_mixing,
 )
-from pyfasst_tpu.utils.config import GEMConfig
+from pyfasst_jax.utils.config import GEMConfig
 
 
 def _model(F, N, J=2, K=3, seed=0):
@@ -84,8 +84,8 @@ def test_graft_entry_contract():
 
 def test_batch_separate_variable_lengths(rng):
     """Bucketed batch separation over clips of different lengths."""
-    from pyfasst_tpu.parallel.batch import batch_separate, frame_buckets
-    from pyfasst_tpu.utils.config import GEMConfig
+    from pyfasst_jax.parallel.batch import batch_separate, frame_buckets
+    from pyfasst_jax.utils.config import GEMConfig
 
     assert frame_buckets([10, 100, 129, 200], granularity=128) == {
         128: [0, 1], 256: [2, 3]}
@@ -119,8 +119,8 @@ def test_batch_padding_preserves_annealing_endpoints(rng):
     as the clip run alone: the batch path computes the endpoints from the
     unpadded frames (zero padding would dilute the per-frequency mean power
     and shrink the noise floor)."""
-    from pyfasst_tpu.parallel.batch import batch_separate
-    from pyfasst_tpu.utils.config import GEMConfig
+    from pyfasst_jax.parallel.batch import batch_separate
+    from pyfasst_jax.utils.config import GEMConfig
 
     F, n = 33, 40          # granularity 128 -> padded 3.2x
     X = (rng.standard_normal((F, n, 2))
@@ -143,7 +143,7 @@ def test_batch_padding_preserves_annealing_endpoints(rng):
 
     # reference: the same clip through run_gem with zero padding but the
     # TRUE endpoints (what an unpadded run of those frames would use)
-    from pyfasst_tpu.ops.gem import endpoints_from_power
+    from pyfasst_jax.ops.gem import endpoints_from_power
     Xp = jnp.asarray(np.pad(X, ((0, 0), (0, 128 - n), (0, 0))),
                      jnp.complex64)
     se = endpoints_from_power(
@@ -160,7 +160,7 @@ def test_batch_checkpoint_resume(rng, tmp_path):
     logliks and images as an uninterrupted run (the single-clip path
     already proves the chunked math; this proves the bucketed configs[4]
     path persists and resumes correctly)."""
-    from pyfasst_tpu.parallel.batch import batch_separate
+    from pyfasst_jax.parallel.batch import batch_separate
 
     F = 33
     lengths = [40, 44, 150]          # two buckets at granularity 64
@@ -211,7 +211,7 @@ def test_batch_checkpoint_resume(rng, tmp_path):
 def test_batch_checkpoint_mismatch_ignored(rng, tmp_path):
     """A stale bucket checkpoint (different clip set or niter) must be
     ignored, not resumed from."""
-    from pyfasst_tpu.parallel.batch import batch_separate
+    from pyfasst_jax.parallel.batch import batch_separate
 
     F, n = 33, 40
     X = rng.standard_normal((F, n, 2)) + 1j * rng.standard_normal((F, n, 2))
@@ -254,8 +254,8 @@ def test_frame_axis_sharding_sp(rng):
     the suff-stat reductions over n become psums inserted by GSPMD."""
     from jax.sharding import NamedSharding, PartitionSpec as P
     import functools
-    from pyfasst_tpu.ops.gem import run_gem
-    from pyfasst_tpu.utils.config import GEMConfig
+    from pyfasst_jax.ops.gem import run_gem
+    from pyfasst_jax.utils.config import GEMConfig
 
     B, F, N = 2, 17, 64
     params_b, X_b = _batch(B, F, N)

@@ -2,7 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pyfasst_tpu.utils.signal import is_distortion, median_filter, db
+from pyfasst_jax.utils.signal import is_distortion, median_filter, db
 
 
 def test_median_filter_matches_scipy(rng):

@@ -3,11 +3,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pyfasst_tpu.models.components import FasstParams, SpatialComp, SpectralComp
-from pyfasst_tpu.models.variants import generate_WF0
-from pyfasst_tpu.ops.gem import annealing_endpoints, run_gem
-from pyfasst_tpu.ops.wiener import separate_sources
-from pyfasst_tpu.utils.config import GEMConfig
+from pyfasst_jax.models.components import FasstParams, SpatialComp, SpectralComp
+from pyfasst_jax.models.variants import generate_WF0
+from pyfasst_jax.ops.gem import annealing_endpoints, run_gem
+from pyfasst_jax.ops.wiener import separate_sources
+from pyfasst_jax.utils.config import GEMConfig
 
 
 def test_simm_component_power_and_updates(rng):
@@ -24,7 +24,7 @@ def test_simm_component_power_and_updates(rng):
     np.testing.assert_allclose(v, want, rtol=1e-5)
 
     # IS divergence decreases under the SIMM updates against a random target
-    from pyfasst_tpu.ops.mstep import _simm_factor_updates
+    from pyfasst_jax.ops.mstep import _simm_factor_updates
     P = jnp.asarray(0.5 + rng.random((F, N)), jnp.float32)
 
     def is_div(c):
@@ -91,7 +91,7 @@ def test_init_from_lead_pipeline(rng, tmp_path):
     source-filter model's F0/envelope activations (melody-constrained),
     and estimation proceeds from there."""
     import scipy.io.wavfile as wavfile
-    from pyfasst_tpu.models.variants import multiChanSourceF0Filter
+    from pyfasst_jax.models.variants import multiChanSourceF0Filter
 
     fs = 8000
     t = np.arange(fs) / fs

@@ -9,7 +9,7 @@ and that the init plugs into the engine.
 import numpy as np
 import pytest
 
-from pyfasst_tpu.models.spatial_init import (
+from pyfasst_jax.models.spatial_init import (
     _best_assignment, activity_profiles, apply_profiles, consensus_votes,
     full_rank_init, mixing_from_votes, repair_votes, tf_covariance_features,
 )
@@ -160,7 +160,7 @@ def test_repair_votes_no_false_positive():
 
 
 def test_init_plugs_into_engine():
-    from pyfasst_tpu.models.variants import MultiChanNMFConv
+    from pyfasst_jax.models.variants import MultiChanNMFConv
     X, _ = _two_source_stft(seed=4, reverb=True)
     fs, wlen = 8000, 190
     rng = np.random.default_rng(0)
@@ -171,8 +171,7 @@ def test_init_plugs_into_engine():
     model = MultiChanNMFConv(mix, fs=fs, nbComps=2, nbNMFComps=3,
                              spatial_rank=2, wlen=256, iter_num=12,
                              spatial_hold_frac=0.3)
-    from pyfasst_tpu.utils.misc import to_host_complex
-    Xm = to_host_complex(model.Xs)
+    Xm = np.asarray(model.Xs)
     A, tw, fb = full_rank_init(Xm, J=2, n_seeds=2, kiter=5)
     model2 = MultiChanNMFConv(mix, fs=fs, nbComps=2, nbNMFComps=3,
                               spatial_rank=2, init_mixing=A, wlen=256,
@@ -188,7 +187,7 @@ def test_init_plugs_into_engine():
 def test_candidate_votes_enumeration():
     """Candidates include the raw votes and every acceptable merge+split
     of correlated pairs; each candidate keeps votes summing to ~1."""
-    from pyfasst_tpu.models.spatial_init import candidate_votes
+    from pyfasst_jax.models.spatial_init import candidate_votes
 
     votes, pw, dom = _repair_fixture()
     cands = candidate_votes(votes, pw)
@@ -205,7 +204,7 @@ def test_candidate_votes_enumeration():
 def test_select_init_by_likelihood_smoke():
     """Selection runs every hypothesis through a short GEM probe and
     returns a usable init (the exact pick is fixture-dependent)."""
-    from pyfasst_tpu.models.spatial_init import (
+    from pyfasst_jax.models.spatial_init import (
         candidate_votes, select_init_by_likelihood)
 
     X, _ = _two_source_stft(F=64, N=96, seed=2, reverb=True)
@@ -224,7 +223,7 @@ def test_max_env_corr_flags_duplicated_source(rng):
     1, distinct-envelope stems do not."""
     import jax.numpy as jnp
 
-    from pyfasst_tpu.models.spatial_init import _max_env_corr
+    from pyfasst_jax.models.spatial_init import _max_env_corr
 
     F, N = 32, 200
     base = rng.random((F, N)) * (1 + np.sin(2 * np.pi *
@@ -252,7 +251,7 @@ def test_select_warns_when_all_hypotheses_degenerate(rng):
     verdict) and the least-degenerate candidate as fallback."""
     import warnings as _warnings
 
-    from pyfasst_tpu.models.spatial_init import (
+    from pyfasst_jax.models.spatial_init import (
         candidate_votes, select_init_by_likelihood)
 
     X, _ = _two_source_stft(F=64, N=96, seed=2, reverb=True)
@@ -333,7 +332,7 @@ def test_blind_reverb_pipeline_i3_smoke():
     """The full blind reverberant pipeline at I=3: pool, tiered selection,
     reseed -- runs the general (square-root) engine end to end and returns
     finite separated images of the right shape."""
-    from pyfasst_tpu.models.reverb import blind_reverb_separate
+    from pyfasst_jax.models.reverb import blind_reverb_separate
 
     X, _, _ = _three_channel_stft(F=48, N=64, seed=2)
     Y, info = blind_reverb_separate(X, J=2, iters=8, em_seeds=1,
@@ -354,7 +353,7 @@ def test_lanczos_top_matches_eigh(rng):
     eigenvectors of a dense symmetric matrix to sign."""
     import jax.numpy as jnp
 
-    from pyfasst_tpu.models.spatial_init import _lanczos_top
+    from pyfasst_jax.models.spatial_init import _lanczos_top
 
     n, k = 300, 3
     A = rng.standard_normal((n, n)).astype(np.float32)
@@ -373,7 +372,7 @@ def test_embed_nodes_device_matches_host(rng):
     """The device graph build + Lanczos produces the same spectral
     embedding SUBSPACE as the host path (checked via the per-frequency
     assignments it induces on a structured problem)."""
-    from pyfasst_tpu.models.spatial_init import (
+    from pyfasst_jax.models.spatial_init import (
         _embed_nodes, _embed_nodes_device, _spherical_kmeans,
         _assignment_from_embedding,
     )
@@ -405,7 +404,7 @@ def test_env_transform_rank_alignment():
     alignment machinery: a per-frequency scramble of envelopes whose only
     cross-frequency signal survives monotone per-node distortions is
     recovered; unknown transform names are rejected."""
-    from pyfasst_tpu.models.spatial_init import (
+    from pyfasst_jax.models.spatial_init import (
         _align_spectral, _env_envelope,
     )
 

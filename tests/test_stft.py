@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from pyfasst_tpu.tf import STFT, stft, istft
+from pyfasst_jax.tf import STFT, stft, istft
 
 
 @pytest.mark.parametrize("wlen,hop", [(256, 128), (256, 64), (1024, 512)])

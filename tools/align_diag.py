@@ -65,9 +65,8 @@ def main():
     ap.add_argument("--n-seeds", type=int, default=8)
     args = ap.parse_args()
 
-    from pyfasst_tpu.tf.stft import STFT
-    from pyfasst_tpu.utils.misc import to_host_complex
-    from pyfasst_tpu.models.spatial_init import (
+    from pyfasst_jax.tf.stft import STFT
+    from pyfasst_jax.models.spatial_init import (
         _align_spectral, _cluster_labels_jax, _vote_consensus,
         consensus_votes, tf_covariance_features,
     )
@@ -83,12 +82,12 @@ def main():
         X, Yt, ys_true, mix, tft, n = make_fixture(args.seed)
         J = 4
     if args.scenario.startswith("music"):
-        X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
+        X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
 
     # oracle dominance plane
     P = []
     for j in range(J):
-        Yj = to_host_complex(tft.computeTransform(
+        Yj = np.asarray(tft.computeTransform(
             np.ascontiguousarray(ys_true[j]).astype(np.float32)))
         P.append((np.abs(Yj) ** 2).sum(-1))
     oracle_lab = np.argmax(np.stack(P), axis=0)

@@ -61,7 +61,7 @@ def align_centglob(feat, pw, lab, J, iters=25, seed=0):
             if m.any():
                 G[k] = np.average(nodes[m], axis=0, weights=wts[m] + 1e-12)
     # per-frequency best assignment: maximize -dist
-    from pyfasst_tpu.models.spatial_init import _best_assignment
+    from pyfasst_jax.models.spatial_init import _best_assignment
     S = -((C[:, :, None, :] - G[None, None]) ** 2).sum(-1)   # (F, J, J)
     sel = _best_assignment(S)
     inv = np.argsort(sel, axis=1)
@@ -71,7 +71,7 @@ def align_centglob(feat, pw, lab, J, iters=25, seed=0):
 def align_centspec(feat, pw, lab, J, seed=0, env_mix=0.0):
     """Spectral clustering of the centroid-similarity graph; env_mix > 0
     multiplies in (1 + envelope correlation) (the 'combo' variant)."""
-    from pyfasst_tpu.models.spatial_init import (
+    from pyfasst_jax.models.spatial_init import (
         _assignment_from_embedding, _normrows, _spherical_kmeans,
     )
     C, npow = _centroids(feat, pw, lab, J)
@@ -117,7 +117,7 @@ def align_centspec(feat, pw, lab, J, seed=0, env_mix=0.0):
 def align_chain(feat, pw, lab, J, bw=32):
     """Sequential: align frequency f's centroids to the power-weighted
     running mean of the last `bw` aligned frequencies."""
-    from pyfasst_tpu.models.spatial_init import _best_assignment
+    from pyfasst_jax.models.spatial_init import _best_assignment
     C, npow = _centroids(feat, pw, lab, J)
     F = C.shape[0]
     # start from the loudest frequency, walk outward both ways
@@ -157,9 +157,8 @@ def main():
     ap.add_argument("--n-seeds", type=int, default=4)
     args = ap.parse_args()
 
-    from pyfasst_tpu.tf.stft import STFT
-    from pyfasst_tpu.utils.misc import to_host_complex
-    from pyfasst_tpu.models.spatial_init import (
+    from pyfasst_jax.tf.stft import STFT
+    from pyfasst_jax.models.spatial_init import (
         _align_spectral, _cluster_labels_jax, tf_covariance_features,
     )
 
@@ -169,7 +168,7 @@ def main():
         t60 = 0.12 if J == 3 else 0.25
         mix, ys_true, n = _fixture(J, t60, args.seed)
         tft = STFT(wlen=args.wlen, fs=FS)
-        X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
+        X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
     else:
         from reverb_lab import make_fixture
         X, Yt, ys_true, mix, tft, n = make_fixture(args.seed)
@@ -177,7 +176,7 @@ def main():
 
     P = []
     for j in range(J):
-        Yj = to_host_complex(tft.computeTransform(
+        Yj = np.asarray(tft.computeTransform(
             np.ascontiguousarray(ys_true[j]).astype(np.float32)))
         P.append((np.abs(Yj) ** 2).sum(-1))
     oracle_lab = np.argmax(np.stack(P), axis=0)

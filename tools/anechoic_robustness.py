@@ -24,15 +24,15 @@ def run_draw(fixture_seed: int, iters: int):
     import jax.numpy as jnp
 
     from tools.validate_hw import FS, WLEN, _best_perm_sdr, _sources
-    from pyfasst_tpu.models.components import (
+    from pyfasst_jax.models.components import (
         CONV, FasstParams, SpatialComp, SpectralComp)
-    from pyfasst_tpu.models.demix import DEMIX
-    from pyfasst_tpu.ops.gem import annealing_endpoints, run_gem
-    from pyfasst_tpu.ops.wiener import separate_sources
-    from pyfasst_tpu.tf.filterbank import spectral_basis
-    from pyfasst_tpu.tf.stft import STFT
-    from pyfasst_tpu.utils.config import GEMConfig
-    from pyfasst_tpu.utils.misc import to_device_complex, to_host_complex
+    from pyfasst_jax.models.demix import DEMIX
+    from pyfasst_jax.ops.gem import annealing_endpoints, run_gem
+    from pyfasst_jax.ops.wiener import separate_sources
+    from pyfasst_jax.tf.filterbank import spectral_basis
+    from pyfasst_jax.tf.stft import STFT
+    from pyfasst_jax.utils.config import GEMConfig
+    import jax.numpy as jnp
 
     rng = np.random.default_rng(fixture_seed)
     n = int(FS * 6.0)
@@ -54,7 +54,7 @@ def run_draw(fixture_seed: int, iters: int):
     ys_true = np.stack(ys_true)
     mix = ys_true.sum(0)
     tft = STFT(wlen=WLEN, fs=FS)
-    X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
+    X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
     F, N = X.shape[:2]
 
     t0 = time.perf_counter()
@@ -68,7 +68,7 @@ def run_draw(fixture_seed: int, iters: int):
 
     FB_erb = jnp.asarray(spectral_basis("erb", 32, F, FS, WLEN),
                          jnp.float32)
-    spat = tuple(SpatialComp(A=to_device_complex(
+    spat = tuple(SpatialComp(A=jnp.asarray(
         np.ascontiguousarray(A0[j])), mix_type=CONV) for j in range(3))
     rng2 = np.random.default_rng(5)
     spec = tuple(SpectralComp(
@@ -76,14 +76,14 @@ def run_draw(fixture_seed: int, iters: int):
         TW=jnp.asarray(0.5 + rng2.random((6, N)), jnp.float32),
         free=(False, True, True, False), spat_ind=j) for j in range(3))
     params = FasstParams(spat=spat, spec=spec)
-    Xd = to_device_complex(X)
+    Xd = jnp.asarray(X)
     scale = float(np.sqrt(np.mean(np.abs(X) ** 2)))
     Xd = Xd / scale
     cfg = GEMConfig(niter=iters, spatial_hold_frac=0.3)
     params, lls = run_gem(params, Xd, cfg)
     _, sigma1 = annealing_endpoints(Xd, cfg)
     Y = separate_sources(params, Xd, sigma1)
-    Yh = to_host_complex(Y) * scale
+    Yh = np.asarray(Y) * scale
     ys = np.stack([np.asarray(tft.invertTransform(Yh[j], nsamples=n))
                    for j in range(3)])
     wall = time.perf_counter() - t0

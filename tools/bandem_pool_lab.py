@@ -31,8 +31,7 @@ from reverb_lab import run_pool, summarize          # noqa: E402
 
 
 def make_scenario(name: str, seed: int, wlen: int):
-    from pyfasst_tpu.tf.stft import STFT
-    from pyfasst_tpu.utils.misc import to_host_complex
+    from pyfasst_jax.tf.stft import STFT
 
     if name.startswith("music"):
         from music_lab import _fixture, FS
@@ -58,8 +57,8 @@ def make_scenario(name: str, seed: int, wlen: int):
     else:
         raise SystemExit(f"unknown scenario {name}")
     tft = STFT(wlen=wlen, fs=fs)
-    X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
-    Yt = np.stack([to_host_complex(tft.computeTransform(
+    X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
+    Yt = np.stack([np.asarray(tft.computeTransform(
         np.ascontiguousarray(ys_true[j]).astype(np.float32)))
         for j in range(J)])
     return X, Yt, J
@@ -68,7 +67,7 @@ def make_scenario(name: str, seed: int, wlen: int):
 def build_pool(X, J, band_width: int):
     """The production candidate set of blind_reverb_separate(band_em=W,
     noalign=True) at the default transform."""
-    from pyfasst_tpu.models.spatial_init import (
+    from pyfasst_jax.models.spatial_init import (
         band_em_votes, candidate_votes, consensus_votes,
         direction_split_candidates, tf_covariance_features,
         realign_votes,

@@ -28,14 +28,14 @@ def main():
     import jax.numpy as jnp
 
     from tools.validate_hw import FS, WLEN, _sources
-    from pyfasst_tpu.models.components import (
+    from pyfasst_jax.models.components import (
         FasstParams, SpatialComp, init_inst_mixing, init_nmf_comp)
-    from pyfasst_tpu.ops.gem import endpoints_from_power
-    from pyfasst_tpu.parallel.sharding import (
+    from pyfasst_jax.ops.gem import endpoints_from_power
+    from pyfasst_jax.parallel.sharding import (
         batch_params, batched_run_gem, make_mesh, sharded_batch_separate)
-    from pyfasst_tpu.tf.stft import STFT
-    from pyfasst_tpu.utils.config import GEMConfig
-    from pyfasst_tpu.utils.misc import to_device_complex, to_host_complex
+    from pyfasst_jax.tf.stft import STFT
+    from pyfasst_jax.utils.config import GEMConfig
+    import jax.numpy as jnp
 
     tft = STFT(wlen=WLEN, fs=FS)
     n = int(FS * args.dur)
@@ -49,10 +49,10 @@ def main():
             s1, s2 = _sources(np.random.default_rng(i), n,
                               ["harm", "noise_hi"])
             mix = np.outer(s1, [0.95, 0.31]) + np.outer(s2, [0.31, 0.95])
-            Xs.append(to_host_complex(
+            Xs.append(np.asarray(
                 tft.computeTransform(mix.astype(np.float32))))
         F, N = Xs[0].shape[:2]
-        X_b = to_device_complex(np.stack(Xs))
+        X_b = jnp.asarray(np.stack(Xs))
 
         def mk(i):
             key = jax.random.PRNGKey(i)

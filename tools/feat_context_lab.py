@@ -125,7 +125,7 @@ def run_perfreq(args, X, olab, J):
     per-frequency-fix planes), blind picks by R^2-on-plain-features and
     by cross-seed stability, concat (8-dim) features, and the realized
     consensus-vote accuracy of each variant."""
-    from pyfasst_tpu.models.spatial_init import (
+    from pyfasst_jax.models.spatial_init import (
         _align_spectral, _cluster_labels_jax, _vote_consensus,
     )
     n_seeds = 8
@@ -206,9 +206,8 @@ def main():
                          "concat features)")
     args = ap.parse_args()
 
-    from pyfasst_tpu.tf.stft import STFT
-    from pyfasst_tpu.utils.misc import to_host_complex
-    from pyfasst_tpu.models.spatial_init import (
+    from pyfasst_jax.tf.stft import STFT
+    from pyfasst_jax.models.spatial_init import (
         _align_spectral, _cluster_labels_jax, _vote_consensus,
     )
 
@@ -218,13 +217,13 @@ def main():
         t60 = 0.12 if J == 3 else 0.25
         mix, ys_true, n = _fixture(J, t60, args.seed)
         tft = STFT(wlen=args.wlen, fs=FS)
-        X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
+        X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
     elif args.scenario == "speech":
         from speech_lab import _fixture, FS
         J = 3
         mix, ys_true, n = _fixture(J, 0.25, args.seed)
         tft = STFT(wlen=args.wlen, fs=FS)
-        X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
+        X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
     else:
         from reverb_lab import make_fixture
         X, Yt, ys_true, mix, tft, n = make_fixture(args.seed)
@@ -232,7 +231,7 @@ def main():
 
     P = []
     for j in range(J):
-        Yj = to_host_complex(tft.computeTransform(
+        Yj = np.asarray(tft.computeTransform(
             np.ascontiguousarray(ys_true[j]).astype(np.float32)))
         P.append((np.abs(Yj) ** 2).sum(-1))
     olab = np.argmax(np.stack(P), axis=0)

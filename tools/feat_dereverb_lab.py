@@ -7,7 +7,7 @@ itself)". This lab measures the two untried feature families that attack
 the saturation MECHANISM (0 dB direct-to-reverb per-bin covariances):
 
   wpe     -- per-frequency multichannel linear-prediction dereverberation
-             (pyfasst_tpu/tf/dereverb.py) BEFORE feature extraction:
+             (pyfasst_jax/tf/dereverb.py) BEFORE feature extraction:
              removes the predictable late tail, raising every bin's D/R.
   onsetw  -- precedence-effect weighting: cluster centroids estimated
              from onset-novelty-weighted frames (at onsets the direct
@@ -53,8 +53,8 @@ def onset_weights(pw: np.ndarray, blend: float = 0.0) -> np.ndarray:
 
 def build_variant(X, name: str, wpe_order: int, wpe_delay: int):
     """-> (feat, w_cluster, pw) for a named feature variant."""
-    from pyfasst_tpu.models.spatial_init import tf_covariance_features
-    from pyfasst_tpu.tf.dereverb import wpe_dereverb
+    from pyfasst_jax.models.spatial_init import tf_covariance_features
+    from pyfasst_jax.tf.dereverb import wpe_dereverb
 
     base = name.split("+")
     Xf = X
@@ -83,11 +83,10 @@ def main():
     ap.add_argument("--n-seeds", type=int, default=8)
     args = ap.parse_args()
 
-    from pyfasst_tpu.models.spatial_init import (
+    from pyfasst_jax.models.spatial_init import (
         _align_spectral, _cluster_labels_jax, _vote_consensus,
     )
-    from pyfasst_tpu.tf.stft import STFT
-    from pyfasst_tpu.utils.misc import to_host_complex
+    from pyfasst_jax.tf.stft import STFT
 
     if args.scenario.startswith("music"):
         from music_lab import _fixture, FS
@@ -95,20 +94,20 @@ def main():
         t60 = 0.12 if J == 3 else 0.25
         mix, ys_true, n = _fixture(J, t60, args.seed)
         tft = STFT(wlen=args.wlen, fs=FS)
-        X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
+        X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
     elif args.scenario == "speech":
         from speech_lab import _fixture, FS
         J = 3
         mix, ys_true, n = _fixture(J, 0.25, args.seed)
         tft = STFT(wlen=args.wlen, fs=FS)
-        X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
+        X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
     elif args.scenario == "image":
         from fixtures2 import make_image_fixture
         J = 4
         mix, ys_true, _meta = make_image_fixture(args.seed, fs=16000,
                                                  dur=6.0, J=J)
         tft = STFT(wlen=1024, fs=16000)
-        X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
+        X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
     else:
         from reverb_lab import make_fixture
         X, Yt, ys_true, mix, tft, n = make_fixture(args.seed)
@@ -116,7 +115,7 @@ def main():
 
     P = []
     for j in range(J):
-        Yj = to_host_complex(tft.computeTransform(
+        Yj = np.asarray(tft.computeTransform(
             np.ascontiguousarray(ys_true[j]).astype(np.float32)))
         P.append((np.abs(Yj) ** 2).sum(-1))
     olab = np.argmax(np.stack(P), axis=0)
@@ -128,7 +127,7 @@ def main():
         if name.startswith("bandem"):
             # model-evidence votes (band-local EM probes); scored on the
             # SAME oracle plane. bandem32 etc. selects the band width.
-            from pyfasst_tpu.models.spatial_init import band_em_votes
+            from pyfasst_jax.models.spatial_init import band_em_votes
             bw = int(name[6:]) if len(name) > 6 else 32
             pw = (np.abs(X) ** 2).sum(-1)
             bv = band_em_votes(X, J, band_width=bw, iters=150,

@@ -70,17 +70,16 @@ def main():
     J = args.stems
     t60 = args.t60 if args.t60 is not None else (0.12 if J == 3 else 0.25)
 
-    from pyfasst_tpu.tf.stft import STFT
-    from pyfasst_tpu.utils.misc import to_host_complex
-    from pyfasst_tpu.models.reverb import selection_key
-    from pyfasst_tpu.models.spatial_init import (
+    from pyfasst_jax.tf.stft import STFT
+    from pyfasst_jax.models.reverb import selection_key
+    from pyfasst_jax.models.spatial_init import (
         _align_spectral, consensus_votes, tf_covariance_features,
     )
 
     mix, ys_true, n = _fixture(J, t60, args.seed)
     tftF = STFT(wlen=args.wfine, fs=FS)
-    XF = to_host_complex(tftF.computeTransform(mix.astype(np.float32)))
-    YtF = np.stack([to_host_complex(tftF.computeTransform(
+    XF = np.asarray(tftF.computeTransform(mix.astype(np.float32)))
+    YtF = np.stack([np.asarray(tftF.computeTransform(
         np.ascontiguousarray(ys_true[j]).astype(np.float32)))
         for j in range(J)])
     olabF = np.argmax((np.abs(YtF) ** 2).sum(-1), axis=0)
@@ -128,8 +127,8 @@ def main():
 
     if args.ladder and best_rec is not None:
         tftC = STFT(wlen=args.wcoarse, fs=FS)
-        XC = to_host_complex(tftC.computeTransform(mix.astype(np.float32)))
-        YtC = np.stack([to_host_complex(tftC.computeTransform(
+        XC = np.asarray(tftC.computeTransform(mix.astype(np.float32)))
+        YtC = np.stack([np.asarray(tftC.computeTransform(
             np.ascontiguousarray(ys_true[j]).astype(np.float32)))
             for j in range(J)])
         olabC = np.argmax((np.abs(YtC) ** 2).sum(-1), axis=0)

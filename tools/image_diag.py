@@ -40,8 +40,7 @@ def main():
     ap.add_argument("--modes", default="oracle-em")
     args = ap.parse_args()
 
-    from pyfasst_tpu.tf.stft import STFT
-    from pyfasst_tpu.utils.misc import to_host_complex
+    from pyfasst_jax.tf.stft import STFT
 
     modes = args.modes.split(",")
     for seed in (int(s) for s in args.seeds.split(",")):
@@ -49,7 +48,7 @@ def main():
         n = mix.shape[0]
         J = ys_true.shape[0]
         tft = STFT(wlen=WLEN, fs=FS)
-        X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
+        X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
         votes = _oracle_votes(tft, np.ascontiguousarray(ys_true), J)
         for mode in modes:
             t0 = time.perf_counter()

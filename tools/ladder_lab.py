@@ -43,7 +43,7 @@ from reverb_lab import run_pool
 def _oracle_fix_labels(lab, oracle_lab, pw, J):
     """Per-frequency permutation of `lab` best matching the oracle plane
     (the alignment upper bound made concrete)."""
-    from pyfasst_tpu.models.spatial_init import _best_assignment
+    from pyfasst_jax.models.spatial_init import _best_assignment
     oh = np.eye(J)[lab] * pw[..., None]
     T = np.einsum('fnj,fnk->fjk', oh, np.eye(J)[oracle_lab])
     # _best_assignment(T) maximizes sum_o T[f, sel[f, o], o]: sel maps
@@ -55,8 +55,7 @@ def _oracle_fix_labels(lab, oracle_lab, pw, J):
 
 def _votes_from_images(tft_to, ys, J, n):
     """Time-domain per-source images -> dominance votes on tft_to's grid."""
-    from pyfasst_tpu.utils.misc import to_host_complex
-    P = [(np.abs(to_host_complex(tft_to.computeTransform(
+    P = [(np.abs(np.asarray(tft_to.computeTransform(
         np.ascontiguousarray(ys[j]).astype(np.float32)))) ** 2).sum(-1)
         for j in range(J)]
     lab = np.argmax(np.stack(P), axis=0)
@@ -78,21 +77,20 @@ def main():
     t60 = args.t60 if args.t60 is not None else (
         0.12 if J == 3 else 0.25)
 
-    from pyfasst_tpu.tf.stft import STFT
-    from pyfasst_tpu.utils.misc import to_host_complex
-    from pyfasst_tpu.models.spatial_init import (
+    from pyfasst_jax.tf.stft import STFT
+    from pyfasst_jax.models.spatial_init import (
         _cluster_labels_jax, consensus_votes, tf_covariance_features,
     )
 
     mix, ys_true, n = _fixture(J, t60, args.seed)
     tftF = STFT(wlen=args.wfine, fs=FS)
     tftC = STFT(wlen=args.wcoarse, fs=FS)
-    XF = to_host_complex(tftF.computeTransform(mix.astype(np.float32)))
-    XC = to_host_complex(tftC.computeTransform(mix.astype(np.float32)))
-    YtF = np.stack([to_host_complex(tftF.computeTransform(
+    XF = np.asarray(tftF.computeTransform(mix.astype(np.float32)))
+    XC = np.asarray(tftC.computeTransform(mix.astype(np.float32)))
+    YtF = np.stack([np.asarray(tftF.computeTransform(
         np.ascontiguousarray(ys_true[j]).astype(np.float32)))
         for j in range(J)])
-    YtC = np.stack([to_host_complex(tftC.computeTransform(
+    YtC = np.stack([np.asarray(tftC.computeTransform(
         np.ascontiguousarray(ys_true[j]).astype(np.float32)))
         for j in range(J)])
 

@@ -44,20 +44,19 @@ def main():
     J = args.stems
     t60 = args.t60 if args.t60 is not None else (0.12 if J == 3 else 0.25)
 
-    from pyfasst_tpu.tf.stft import STFT
-    from pyfasst_tpu.utils.misc import to_host_complex
-    from pyfasst_tpu.models.reverb import blind_reverb_separate, \
+    from pyfasst_jax.tf.stft import STFT
+    from pyfasst_jax.models.reverb import blind_reverb_separate, \
         selection_key
-    from pyfasst_tpu.models.spatial_init import tf_covariance_features
+    from pyfasst_jax.models.spatial_init import tf_covariance_features
 
     wins = {"prod": [], "agree": [], "oracle": []}
     for draw in args.draws:
         mix, ys_true, n = _fixture(J, t60, draw)
         tft_f = STFT(wlen=args.wfine, fs=FS)
         tft_c = STFT(wlen=args.wcoarse, fs=FS)
-        XF = to_host_complex(tft_f.computeTransform(mix.astype(np.float32)))
-        XC = to_host_complex(tft_c.computeTransform(mix.astype(np.float32)))
-        YtC = np.stack([to_host_complex(tft_c.computeTransform(
+        XF = np.asarray(tft_f.computeTransform(mix.astype(np.float32)))
+        XC = np.asarray(tft_c.computeTransform(mix.astype(np.float32)))
+        YtC = np.stack([np.asarray(tft_c.computeTransform(
             np.ascontiguousarray(ys_true[j]).astype(np.float32)))
             for j in range(J)])
 
@@ -67,11 +66,11 @@ def main():
         tops = info_f["tops"]
         cands, labs = [], {}
         for r_i, rec in enumerate(tops):
-            Yf = to_host_complex(rec["Y"])
+            Yf = np.asarray(rec["Y"])
             P = []
             for j in range(J):
                 yj = np.asarray(tft_f.invertTransform(Yf[j], nsamples=n))
-                Yj = to_host_complex(tft_c.computeTransform(
+                Yj = np.asarray(tft_c.computeTransform(
                     np.ascontiguousarray(yj).astype(np.float32)))
                 P.append((np.abs(Yj) ** 2).sum(-1))
             lab = np.argmax(np.stack(P), axis=0)

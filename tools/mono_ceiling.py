@@ -63,9 +63,9 @@ def _sweep(args):
     against the random-init reference on the identical model."""
     import jax  # noqa: F401  (device selection happens at import)
 
-    from pyfasst_tpu.models.variants import MultiChanNMFInst_FASST
-    from pyfasst_tpu.tf.stft import STFT  # noqa: F401
-    from pyfasst_tpu.utils.metrics import bss_eval_images
+    from pyfasst_jax.models.variants import MultiChanNMFInst_FASST
+    from pyfasst_jax.tf.stft import STFT  # noqa: F401
+    from pyfasst_jax.utils.metrics import bss_eval_images
 
     kind_sets = [
         ["harm", "noise_lo"], ["harm", "noise_hi"],
@@ -135,10 +135,9 @@ def main():
 
     import jax.numpy as jnp
 
-    from pyfasst_tpu.models.variants import MultiChanNMFInst_FASST
-    from pyfasst_tpu.tf.stft import STFT
-    from pyfasst_tpu.utils.metrics import bss_eval_images
-    from pyfasst_tpu.utils.misc import to_host_complex
+    from pyfasst_jax.models.variants import MultiChanNMFInst_FASST
+    from pyfasst_jax.tf.stft import STFT
+    from pyfasst_jax.utils.metrics import bss_eval_images
 
     # the exact validate_hw mono fixture: rng(110), 3ch sources drawn
     # first (and discarded), then the mono pair
@@ -150,7 +149,7 @@ def main():
     mix = ys_true.sum(0).astype(np.float32)
 
     tft = STFT(wlen=WLEN, fs=FS)
-    P_true = [np.abs(to_host_complex(
+    P_true = [np.abs(np.asarray(
         tft.computeTransform(ys_true[j].astype(np.float32)))[:, :, 0])
         ** 2 for j in range(2)]
 

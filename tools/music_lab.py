@@ -32,8 +32,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from pyfasst_tpu.tf.stft import STFT
-from pyfasst_tpu.utils.misc import to_host_complex
+from pyfasst_jax.tf.stft import STFT
 
 from validate_hw import (_best_perm_sdr, _istft_images, _music_mix,
                          _music_sources)
@@ -61,7 +60,7 @@ def _oracle_votes(tft, ys_true, J):
     """Per-bin dominance votes from the TRUE image spectra (oracle init)."""
     P = []
     for j in range(J):
-        Yj = to_host_complex(tft.computeTransform(
+        Yj = np.asarray(tft.computeTransform(
             ys_true[j].astype(np.float32)))
         P.append((np.abs(Yj) ** 2).sum(-1))
     lab = np.argmax(np.stack(P), axis=0)              # (F, N)
@@ -74,35 +73,35 @@ def _run_from_votes(X, votes, J, iters, nmf_comps=6, rank=2, seed=0):
     import jax
     import jax.numpy as jnp
 
-    from pyfasst_tpu.models.components import (
+    from pyfasst_jax.models.components import (
         CONV, FasstParams, SpatialComp, init_nmf_comp,
     )
-    from pyfasst_tpu.models.spatial_init import (
+    from pyfasst_jax.models.spatial_init import (
         activity_profiles, apply_profiles, mixing_from_votes,
         tf_covariance_features,
     )
-    from pyfasst_tpu.ops.gem import annealing_endpoints, run_gem
-    from pyfasst_tpu.ops.wiener import separate_sources
-    from pyfasst_tpu.utils.config import GEMConfig
-    from pyfasst_tpu.utils.misc import to_device_complex
+    from pyfasst_jax.ops.gem import annealing_endpoints, run_gem
+    from pyfasst_jax.ops.wiener import separate_sources
+    from pyfasst_jax.utils.config import GEMConfig
+    import jax.numpy as jnp
 
     feat, w, pw, xx = tf_covariance_features(X)
     A = mixing_from_votes(votes, xx, pw, rank=rank)
     twp, fbp = activity_profiles(votes, pw)
     keys = list(jax.random.split(jax.random.PRNGKey(seed), J))
     F, N = X.shape[:2]
-    spat = tuple(SpatialComp(A=to_device_complex(A[j]), mix_type=CONV)
+    spat = tuple(SpatialComp(A=jnp.asarray(A[j]), mix_type=CONV)
                  for j in range(J))
     spec = tuple(init_nmf_comp(keys[j], F, N, nmf_comps, spat_ind=j)
                  for j in range(J))
     params = apply_profiles(FasstParams(spat=spat, spec=spec), twp, fbp)
     scale = float(np.sqrt(np.mean(np.abs(X) ** 2)))
-    Xd = to_device_complex(np.ascontiguousarray(X)) / scale
+    Xd = jnp.asarray(np.ascontiguousarray(X)) / scale
     cfg = GEMConfig(niter=iters, spatial_hold_frac=0.3)
     params, lls = run_gem(params, Xd, cfg)
     _, sigma1 = annealing_endpoints(Xd, cfg)
     Y = separate_sources(params, Xd, sigma1)
-    return to_host_complex(Y) * scale, float(np.asarray(lls)[-1])
+    return np.asarray(Y) * scale, float(np.asarray(lls)[-1])
 
 
 def main():
@@ -124,7 +123,7 @@ def main():
 
     for wlen in (int(x) for x in args.wlens.split(",")):
         tft = STFT(wlen=wlen, fs=FS)
-        X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
+        X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
         F, N = X.shape[:2]
         print(f"music_lab: wlen {wlen} -> F {F} N {N}", file=sys.stderr,
               flush=True)
@@ -140,7 +139,7 @@ def main():
                 "final_ll": round(ll, 1),
                 "wall_s": round(time.perf_counter() - t0, 1)}), flush=True)
         if "blind" in modes:
-            from pyfasst_tpu.models.reverb import blind_reverb_separate
+            from pyfasst_jax.models.reverb import blind_reverb_separate
             t0 = time.perf_counter()
             Y, info = blind_reverb_separate(X, J=J, iters=args.iters,
                                             em_seeds=args.em_seeds,

@@ -33,8 +33,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from reverb_lab import run_pool, summarize
 from music_lab import _fixture, _oracle_votes, FS
 
-from pyfasst_tpu.tf.stft import STFT
-from pyfasst_tpu.utils.misc import to_host_complex
+from pyfasst_jax.tf.stft import STFT
 
 
 def main():
@@ -55,14 +54,14 @@ def main():
 
     mix, ys_true, n = _fixture(args.stems, t60, args.seed)
     tft = STFT(wlen=args.wlen, fs=FS)
-    X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
-    Yt = np.stack([to_host_complex(tft.computeTransform(
+    X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
+    Yt = np.stack([np.asarray(tft.computeTransform(
         ys_true[j].astype(np.float32))) for j in range(J)])
     F, N = X.shape[:2]
     print(f"music_pool: stems {J} t60 {t60} wlen {args.wlen} "
           f"-> F {F} N {N}", file=sys.stderr, flush=True)
 
-    from pyfasst_tpu.models.spatial_init import (
+    from pyfasst_jax.models.spatial_init import (
         candidate_votes, consensus_votes, direction_split_candidates,
         realign_votes, tf_covariance_features,
     )

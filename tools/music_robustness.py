@@ -60,12 +60,12 @@ def main():
                          "§6e) becomes directly reachable")
     args = ap.parse_args()
     if args.env_transform and args.env_transform != "both":
-        import pyfasst_tpu.models.spatial_init as si
+        import pyfasst_jax.models.spatial_init as si
         si._ENV_TRANSFORM = args.env_transform
     t60 = args.t60 if args.t60 is not None else (
         0.12 if args.stems == 3 else 0.25)
 
-    from pyfasst_tpu.models.reverb import (
+    from pyfasst_jax.models.reverb import (
         blind_reverb_separate, blind_reverb_separate_multiscale,
     )
 
@@ -74,11 +74,10 @@ def main():
         mix, ys_true, n = _fixture(args.stems, t60, draw)
         t0 = time.perf_counter()
         if args.flat:
-            from pyfasst_tpu.tf.stft import STFT
-            from pyfasst_tpu.utils.misc import to_host_complex
+            from pyfasst_jax.tf.stft import STFT
 
             tft = STFT(wlen=args.wcoarse, fs=FS)
-            X = to_host_complex(tft.computeTransform(
+            X = np.asarray(tft.computeTransform(
                 mix.astype(np.float32)))
             Y, info = blind_reverb_separate(
                 X, J=args.stems, iters=args.iters, em_seeds=2, chunk=12,

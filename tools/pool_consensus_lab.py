@@ -56,10 +56,9 @@ def main():
     ap.add_argument("--chunk", type=int, default=8)
     args = ap.parse_args()
 
-    from pyfasst_tpu.tf.stft import STFT
-    from pyfasst_tpu.utils.misc import to_host_complex
-    from pyfasst_tpu.models.reverb import selection_key
-    from pyfasst_tpu.models.spatial_init import (
+    from pyfasst_jax.tf.stft import STFT
+    from pyfasst_jax.models.reverb import selection_key
+    from pyfasst_jax.models.spatial_init import (
         candidate_votes, consensus_votes, direction_split_candidates,
         realign_votes, tf_covariance_features,
     )
@@ -70,12 +69,12 @@ def main():
         t60 = 0.12 if J == 3 else 0.25
         mix, ys_true, n = _fixture(J, t60, args.seed)
         tft = STFT(wlen=args.wlen, fs=FS)
-        X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
+        X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
     else:
         from reverb_lab import make_fixture
         X, _, ys_true, mix, tft, n = make_fixture(args.seed)
         J = 4
-    Yt = np.stack([to_host_complex(tft.computeTransform(
+    Yt = np.stack([np.asarray(tft.computeTransform(
         np.ascontiguousarray(ys_true[j]).astype(np.float32)))
         for j in range(J)])
     olab = np.argmax((np.abs(Yt) ** 2).sum(-1), axis=0)

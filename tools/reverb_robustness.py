@@ -7,7 +7,7 @@ unseparated (min SDR < 1 dB). This sweep quantifies the spread: for each
 fixture rng seed it builds the SAME reverberant 4-source mixture family as
 tools/validate_hw.py::scenario_reverb, runs the full blind pipeline
 (consensus votes -> repair -> full-rank EM), and prints one JSON line per
-draw plus a summary. Run on the TPU (or CPU with --iters lowered).
+draw plus a summary. Run on the GPU (or CPU with --iters lowered).
 
 Usage: python tools/reverb_robustness.py [--draws 5] [--iters 400]
 """
@@ -29,10 +29,9 @@ def run_draw(fixture_seed: int, em_seed: int, iters: int,
              mic_type="ortf", band_em=None, noalign=False,
              select=None, learned=False):
     from tools.validate_hw import FS, WLEN, _best_perm_sdr, _sources
-    from pyfasst_tpu.models.spatial_init import apply_profiles, full_rank_init
-    from pyfasst_tpu.models.variants import MultiChanNMFConv
-    from pyfasst_tpu.tf.stft import STFT
-    from pyfasst_tpu.utils.misc import to_host_complex
+    from pyfasst_jax.models.spatial_init import apply_profiles, full_rank_init
+    from pyfasst_jax.models.variants import MultiChanNMFConv
+    from pyfasst_jax.tf.stft import STFT
 
     rng = np.random.default_rng(fixture_seed)
     n = int(FS * 6.0)
@@ -57,13 +56,13 @@ def run_draw(fixture_seed: int, em_seed: int, iters: int,
         ys_true = np.stack(ys_true)
         mix = ys_true.sum(0)
     tft = STFT(wlen=WLEN, fs=FS)
-    X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
+    X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
 
     t0 = time.perf_counter()
     if mode == "pipeline":
         # the full production recipe: pooled candidates at full
         # convergence, degeneracy-statistics selection, EM reseeding
-        from pyfasst_tpu.models.reverb import blind_reverb_separate
+        from pyfasst_jax.models.reverb import blind_reverb_separate
         Y, info = blind_reverb_separate(X, J=4, iters=iters,
                                         em_seeds=max(2, em_seed + 1),
                                         band_em=band_em, noalign=noalign,
@@ -136,7 +135,7 @@ def main():
                          "em_seeds >= 2; design.md §6g)")
     args = ap.parse_args()
     if args.env_transform:
-        import pyfasst_tpu.models.spatial_init as si
+        import pyfasst_jax.models.spatial_init as si
         si._ENV_TRANSFORM = args.env_transform
 
     recs = []

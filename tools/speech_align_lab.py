@@ -61,9 +61,8 @@ def main():
     ap.add_argument("--skip-real", action="store_true")
     args = ap.parse_args()
 
-    from pyfasst_tpu.tf.stft import STFT
-    from pyfasst_tpu.utils.misc import to_host_complex
-    import pyfasst_tpu.models.spatial_init as si
+    from pyfasst_jax.tf.stft import STFT
+    import pyfasst_jax.models.spatial_init as si
 
     if args.scenario == "speech":
         from speech_lab import _fixture, FS
@@ -80,11 +79,11 @@ def main():
         FS = None
     if args.scenario != "reverb":
         tft = STFT(wlen=args.wlen, hop=args.hop, fs=FS)
-        X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
+        X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
 
     P = []
     for j in range(J):
-        Yj = to_host_complex(tft.computeTransform(
+        Yj = np.asarray(tft.computeTransform(
             np.ascontiguousarray(ys_true[j]).astype(np.float32)))
         P.append((np.abs(Yj) ** 2).sum(-1))
     olab = np.argmax(np.stack(P), axis=0)

@@ -27,8 +27,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from pyfasst_tpu.tf.stft import STFT
-from pyfasst_tpu.utils.misc import to_host_complex
+from pyfasst_jax.tf.stft import STFT
 
 from music_lab import _oracle_votes, _run_from_votes
 from validate_hw import (_best_perm_sdr, _istft_images, _music_mix,
@@ -77,7 +76,7 @@ def main():
                     help="add realigned-reseed hypotheses to the pool")
     args = ap.parse_args()
     if args.env_transform and args.env_transform != "both":
-        import pyfasst_tpu.models.spatial_init as si
+        import pyfasst_jax.models.spatial_init as si
         si._ENV_TRANSFORM = args.env_transform
     J = args.spk
     mix, ys_true, n = _fixture(J, args.t60, args.seed)
@@ -85,7 +84,7 @@ def main():
 
     for wlen in (int(x) for x in args.wlens.split(",")):
         tft = STFT(wlen=wlen, fs=FS)
-        X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
+        X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
         F, N = X.shape[:2]
         print(f"speech_lab: wlen {wlen} -> F {F} N {N}", file=sys.stderr,
               flush=True)
@@ -101,7 +100,7 @@ def main():
                 "final_ll": round(ll, 1),
                 "wall_s": round(time.perf_counter() - t0, 1)}), flush=True)
         if "blind" in modes:
-            from pyfasst_tpu.models.reverb import blind_reverb_separate
+            from pyfasst_jax.models.reverb import blind_reverb_separate
             t0 = time.perf_counter()
             Y, info = blind_reverb_separate(
                 X, J=J, iters=args.iters, em_seeds=args.em_seeds,
@@ -136,7 +135,7 @@ def main():
             # for syllabic envelopes, dead at 256 ms -- measured blind
             # -0.68 dB at wlen 4096 vs +2.17 at 2048), model capacity at
             # 2*wlen (oracle ceiling 13.5 at 4096 vs 9.8 at 2048)
-            from pyfasst_tpu.models.reverb import (
+            from pyfasst_jax.models.reverb import (
                 blind_reverb_separate_multiscale,
             )
             t0 = time.perf_counter()

@@ -22,8 +22,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from pyfasst_tpu.tf.stft import STFT                     # noqa: E402
-from pyfasst_tpu.utils.misc import to_host_complex      # noqa: E402
+from pyfasst_jax.tf.stft import STFT                     # noqa: E402
 
 from validate_hw import (_best_perm_sdr, _istft_images, _music_mix,
                          _speech_sources)               # noqa: E402
@@ -71,7 +70,7 @@ CONFIG_SETS = {
 
 
 def run_one(mix, ys_true, n, cfg, iters: int, em_seeds: int):
-    from pyfasst_tpu.models.reverb import (
+    from pyfasst_jax.models.reverb import (
         blind_reverb_separate, blind_reverb_separate_multiscale,
     )
 
@@ -90,7 +89,7 @@ def run_one(mix, ys_true, n, cfg, iters: int, em_seeds: int):
         tft = info["transform"]
     else:
         tft = STFT(wlen=cfg["wlen"], fs=FS)
-        X = to_host_complex(tft.computeTransform(mix.astype(np.float32)))
+        X = np.asarray(tft.computeTransform(mix.astype(np.float32)))
         Y, info = blind_reverb_separate(
             X, J=ys_true.shape[0], chunk=12 if cfg["wlen"] <= 2048 else 6,
             **kw)
